@@ -3,19 +3,19 @@ starts, and ahead-of-time compiled artifacts.
 
 The reference is a research library (every ``Focusr`` instance recomputes
 everything, ``focusr.py:134-170``); this example shows the three serving
-tiers the TPU rebuild adds, fastest first:
+tiers this rebuild adds, fastest first:
 
 1. PREPARED TEMPLATE (same target for every pair): the target's
-   eigensolve + smoothing computed once — 0.08-0.10 s/pair at 15k.
+   eigensolve + smoothing computed once.
 2. CLASS-TEMPLATE WARM START (never-seen pairs of one anatomy class):
-   one prepared mesh seeds BOTH eigensolves of each new pair —
-   0.16-0.18 s/pair at 15k vs 0.20-0.22 cold, identical quality.
+   one prepared mesh seeds BOTH eigensolves of each new pair, at
+   identical quality.
 3. AOT ARTIFACTS (fleet startup): the fully-compiled executable
-   serialized to disk — a fresh process reaches its first completed 15k
-   registration in ~7.5 s instead of ~42 s (v5e; `.jaxexec` format), or
-   the portable StableHLO form for heterogeneous fleets.
+   serialized to disk — a fresh process runs it without compiling
+   (`.jaxexec` format), or the portable StableHLO form for
+   heterogeneous fleets.
 
-Run: python examples/aot_serving.py  (CPU or TPU; sizes are small)
+Run: python examples/aot_serving.py  (CPU or GPU; sizes are small)
 """
 
 import os

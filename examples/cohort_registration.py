@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Cohort-to-template registration sharded over available devices
-(BASELINE.json config 5).
+"""Cohort-to-template registration sharded over available devices.
 
 Builds a synthetic cohort by warping the bundled target bone mesh, registers
 the source bone (template) to every subject with one pair per device, and
 writes the cohort mean shape plus the all-pairs surface-error matrix.
 
-Run on TPU as-is (1 chip -> unsharded vmap), or simulate 8 chips on CPU:
+Run on a GPU as-is (1 device -> unsharded), or simulate 8 devices on CPU:
 
     python tools/run_cpu.py examples/cohort_registration.py
 """

@@ -6,12 +6,12 @@ where no single pair can be trusted blindly.
 Pipeline demonstrated:
   1. symmetric pair registration (forward + backward fused; per-pair
      forward/backward-consistency and cycle-error diagnostics),
-  2. all ordered pairs of a small cohort as ONE vmapped program,
+  2. all ordered pairs of a small cohort in ONE program,
   3. three-cycle transitivity error as the cohort-level quality metric,
   4. consensus map synchronization (repairs weak/corrupted maps), and
   5. spectral (functional-map) synchronization, flagging outlier maps.
 
-Run on TPU as-is, or on CPU:
+Run on a GPU as-is, or on CPU:
 
     python tools/run_cpu.py examples/groupwise_consistency.py
 """

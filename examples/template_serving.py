@@ -4,22 +4,21 @@
 The production pattern for cohort studies and registration services: the
 template's eigensolve + coordinate smoothing are hoisted out of the
 per-pair path (``pipeline.prepare_target``), computed once (or loaded from
-a saved ``.npz``), and reused for every incoming subject — measured 1.69x
-per pair at 15k vertices on one v5e chip, with outputs bit-identical to
-``register_pair``.
+a saved ``.npz``), and reused for every incoming subject, with outputs
+bit-identical to ``register_pair``.
 
 Two serving tiers, both fed by the same saved ``.npz``:
 
 1. **Same-target serving** (this script's main loop): every subject is
    registered onto THE prepared mesh itself — bit-identical to the cold
-   run, 1.69x faster per pair.
+   run, with the template's work done once.
 2. **Class-template warm start** — the recommended default for serving
    *never-seen pairs* of a known anatomy class: the prepared mesh is
    only a representative of the class, and its converged eigensolver
    block seeds BOTH eigensolves of each new pair
    (``warm_block_from_prepared`` -> ``register_pair(warm_block=...)``).
-   The fastest cold-pair path measured (~0.17 s vs 0.21 s at 15k on
-   v5e, bench ``class_template_15k``), with a residual safeguard that
+   The fastest cold-pair path (bench ``class_template_15k``), with a
+   residual safeguard that
    self-heals toward the full solve when the template is a poor match.
    Demonstrated here with ``--warm`` (registers subj2 onto subj1 warm-
    started from the template).

@@ -1,6 +1,6 @@
 """Drop-in alias for the reference package name ``pyfocusr``.
 
-Code written against gattia/pyfocusr imports the TPU-native framework
+Code written against gattia/pyfocusr imports the JAX framework
 unchanged::
 
     from pyfocusr import Focusr, Graph

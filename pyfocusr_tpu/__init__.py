@@ -1,6 +1,7 @@
-"""pyfocusr_tpu — TPU-native FOCUSR spectral surface registration.
+"""pyfocusr_tpu — FOCUSR spectral surface registration in JAX, accelerated
+on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of FOCUSR (Lombaert et al. 2013,
+A from-scratch JAX/XLA re-design of FOCUSR (Lombaert et al. 2013,
 Feature-Oriented Correspondence Using Spectral Regularization) with the same
 capabilities as the reference implementation gattia/pyfocusr: dense point
 correspondences between triangle-mesh surfaces via feature-weighted graph
@@ -8,7 +9,7 @@ Laplacians, spectral-coordinate alignment, and Coherent Point Drift.
 
 Public surface mirrors the reference's ``pyfocusr/__init__.py:1-5``
 (``Focusr``, ``Graph``, ``eigsort``, ``recursive_eig``, ``print_header``,
-the ``vtk_functions`` module) plus the TPU-native extensions: mesh pytrees,
+the ``vtk_functions`` module) plus the accelerator extensions: mesh pytrees,
 jit pipeline entry points, and sharded cohort registration.
 """
 
@@ -49,7 +50,7 @@ def recursive_eig(matrix, k, n_k_needed, k_buffer=1, sigma=1e-10, which="LM"):
     dense) matrix, growing k on shortfall.
 
     This shim exists for API parity with code that called the reference's
-    ``recursive_eig`` on a scipy matrix directly; the TPU-native path is
+    ``recursive_eig`` on a scipy matrix directly; the accelerated path is
     ``Graph.get_graph_spectrum`` (matrix-free deflated shift-invert Lanczos,
     ``ops/eigen.py``), which never materializes the Laplacian.
 

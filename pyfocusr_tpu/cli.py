@@ -1,5 +1,5 @@
 """Command-line interface (the reference has none — SURVEY §1 "no CLI";
-this is a TPU-native extension for production/batch use).
+this is an extension for production/batch use).
 
     pyfocusr-tpu register target.vtk source.vtk -o out_dir [--fast] [...]
     pyfocusr-tpu cohort template.vtk subj1.vtk subj2.vtk ... -o out_dir
@@ -437,16 +437,9 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get(
-                "JAX_COMPILATION_CACHE_DIR",
-                os.path.expanduser("~/.jax_cache"),
-            ),
-        )
-    except Exception:
-        pass
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from .pipeline import PipelineConfig, mesh_to_graph_arrays, register_pair
 

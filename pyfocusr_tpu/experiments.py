@@ -1,7 +1,8 @@
 """Measured-neutral alternative schedules, kept out of the mainline config.
 
 Both entry points here were implemented, verified for exactness, and then
-benched NEUTRAL-OR-SLOWER on v5e at the bundled 5k-15k sizes, so neither is
+benched NEUTRAL-OR-SLOWER at the bundled 5k-15k sizes on the hardware the
+repo first targeted (not re-measured on a GPU), so neither is
 reachable from ``PipelineConfig`` (round-2 measurements, preserved here so
 the negative results are reproducible rather than re-discovered):
 

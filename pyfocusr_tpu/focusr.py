@@ -1,6 +1,6 @@
 """Focusr orchestrator: the end-to-end FOCUSR registration pipeline.
 
-TPU-native re-implementation of the reference ``Focusr`` class
+JAX re-implementation of the reference ``Focusr`` class
 (``focusr.py:22-807``).  The constructor signature mirrors the reference's
 ~40 keyword arguments by name (they are the public API contract — SURVEY
 §5.6), plus ``seed`` for reproducible subsampling and ``timer`` options.
@@ -531,7 +531,7 @@ class Focusr(object):
     def align_maps_pipeline(self, landmark_pairs=None):
         """Run the registration as ONE compiled XLA program
         (pipeline.register_pair) and populate the reference-named result
-        attributes.  ~10x faster than the stage-by-stage path on TPU; only
+        attributes.  Much faster than the stage-by-stage path; only
         for configurations _pipeline_compatible() covers.
 
         ``landmark_pairs``: optional i32 [L, 2] known (source_vertex,

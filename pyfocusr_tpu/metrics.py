@@ -20,7 +20,7 @@ the same judgement programmatically:
   distances, both directions; catches a single badly-placed region that
   the means hide.
 
-All distance queries run through the TPU KNN kernels (``ops.knn.nn_query``),
+All distance queries run through the device KNN path (``ops.knn.nn_query``),
 so the metrics stay cheap at 100k+ vertices.
 """
 

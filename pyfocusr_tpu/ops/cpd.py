@@ -1,5 +1,5 @@
 """Coherent Point Drift (Myronenko & Song 2010) — affine and low-rank
-deformable registration, TPU-native.
+deformable registration, on the accelerator.
 
 Replaces the Cython ``cycpd`` package the reference drives from
 ``focusr.py:297-334``.  The API surface consumed there is preserved exactly:
@@ -17,15 +17,15 @@ spectral cloud onto the *source* — direction handled by the caller, see
 ``focusr.py:297-334``.)  Affine substitutes for rigid because D > 3
 (``focusr.py:318``).
 
-TPU design:
+Design:
   * The EM loop is one `lax.while_loop` (tolerance + iteration cap), fully
     on-device; no per-iteration host sync.
-  * E-step: responsibilities P [M, N] from one MXU matmul (pairwise sq-dists
+  * E-step: responsibilities P [M, N] from one matmul (pairwise sq-dists
     at f32 precision) + row/col reductions.  P1/Pt1/PX are the only outputs.
   * Deformable M-step uses the *low-rank* Gaussian kernel G ~ Q L Q^T with the
     top ``num_eig`` eigenpairs (cycpd's ``num_eig`` knob, default 100,
     ``focusr.py:46,307``) obtained by randomized subspace iteration — two
-    passes of [M, M] x [M, p] matmuls + QR + a small eigh, ideal MXU work,
+    passes of [M, M] x [M, p] matmuls + QR + a small eigh, dense matmul work,
     instead of a host Lanczos.  The M-step is solved in the kernel
     eigenbasis with symmetric sqrt(lam) balancing (see _deformable_cpd_run)
     — mathematically the Woodbury solve, but f32-stable even for
@@ -56,21 +56,35 @@ __all__ = [
 ]
 
 
-# Single source of truth for the cancellation-sensitive matmul distance
-# identity (precision fixes must not fork between cpd and knn).
+# Single source of truth for squared distances (direct differences, exact
+# f32), shared with the KNN queries.
 from .knn import pairwise_sq_dists as _sq_dists
+
+
+def _gram_sq_dists(a, b):
+    """Squared distances of the Gaussian Gram by the f32 (HIGHEST) matmul
+    identity.  The Gram keeps this form rather than the direct
+    differences of ``knn.pairwise_sq_dists``: the randomized eigensolve
+    of ``low_rank_gaussian`` resolves the Gram's tail eigenvalues only to
+    f32 noise, with either form (rank 40 of a 300-point Gram against
+    float64, 24 draws: median error 2.8% direct, 3.2% identity), so the
+    direct form gains nothing there and would re-draw that noise in every
+    CPD warp and in the tail-eigenvalue test."""
+    an = jnp.sum(a * a, axis=1, keepdims=True)
+    bn = jnp.sum(b * b, axis=1, keepdims=True)
+    return jnp.maximum(an + bn.T - 2.0 * jnp.dot(a, b.T, precision=_PREC), 0.0)
 
 
 def gaussian_kernel(a, b, beta):
     """G[i, j] = exp(-||a_i - b_j||^2 / (2 beta^2))."""
-    return jnp.exp(-_sq_dists(a, b) / (2.0 * beta**2))
+    return jnp.exp(-_gram_sq_dists(a, b) / (2.0 * beta**2))
 
 
 def _estep(X, TY, sigma2, w):
     """CPD E-step.  Returns (Pt1 [N], P1 [M], PX [M, D], Np, L).
 
     L is the negative log-likelihood term, returned for signature parity
-    with the tiled/pallas E-steps; the solvers converge on |delta sigma2|
+    with the tiled E-step; the solvers converge on |delta sigma2|
     (pycpd semantics) and do not consume it, so XLA dead-code-eliminates
     it under jit.
     """
@@ -93,7 +107,7 @@ def _estep(X, TY, sigma2, w):
 def _init_sigma2(X, Y):
     """sigma2_0 = sum_ij ||y_i - x_j||^2 / (D M N) (pycpd initialize_sigma2)
     in CLOSED FORM: sum_ij d2 = N sum|y|^2 + M sum|x|^2 - 2 sum_y . sum_x,
-    so no [M, N] buffer is ever allocated — the tiled/pallas E-steps exist
+    so no [M, N] buffer is ever allocated — the tiled E-step exists
     precisely to keep [M, N] out of HBM at large M*N, and materializing it
     here (10 GB at 50k x 50k) would defeat them.  Both clouds are shifted by
     their joint mean first (distance-invariant) so a large common offset
@@ -198,15 +212,15 @@ class affine_registration:
 def low_rank_gaussian(Y, beta, num_eig: int, key):
     """Top-``num_eig`` eigenpairs of the M x M Gaussian Gram of Y via
     randomized subspace iteration (Halko et al.): exact enough for the
-    fast-decaying Gaussian spectrum, and pure MXU matmuls.
+    fast-decaying Gaussian spectrum, and pure dense matmuls.
 
     For M above ~8k the Gram is applied in row tiles
-    (pallas_kernels.gaussian_matvec_tiled) so it never materializes —
+    (tiled.gaussian_matvec_tiled) so it never materializes —
     full-resolution CPD support the CPU reference lacks.
 
     Returns (Q [M, k], lam [k]) with G ~ Q diag(lam) Q^T.
     """
-    from .pallas_kernels import gaussian_matvec_tiled
+    from .tiled import gaussian_matvec_tiled
 
     M = Y.shape[0]
     if M <= 8192:
@@ -220,10 +234,9 @@ def low_rank_gaussian(Y, beta, num_eig: int, key):
 
     p = min(num_eig + 16, M)
 
-    # NEGATIVE RESULT (round 4): replacing these Householder QRs (serial
-    # on TPU, ~10 ms per [1000, 116] pass — the profiler shows this
-    # stage at ~35 ms, ~18% of the 15k headline) with SVQB-style Gram
-    # orthonormalization does NOT work here.  The Gaussian Gram collapses
+    # NEGATIVE RESULT (round 4): replacing these Householder QRs (a
+    # serial factorization) with SVQB-style Gram orthonormalization does
+    # NOT work here.  The Gaussian Gram collapses
     # the block to condition ~1e5+, which SQUARES to ~1e10+ in the
     # [p, p] Gram — beyond f32: single SVQB corrupts the small-eigenvalue
     # tail 1.1x (the tail carries warp detail, see the num_eig note
@@ -232,7 +245,7 @@ def low_rank_gaussian(Y, beta, num_eig: int, key):
     # degrade non-monotonically with extra passes (clamped noise
     # directions don't re-sharpen predictably).  QR operates on V
     # directly at condition ~1e5 (f32-representable) and is the only
-    # scheme that preserves the tail; the ~20 ms saving is not worth the
+    # scheme that preserves the tail; the time saving is not worth the
     # documented ~6 mm parity cost of a corrupted tail.
     omega = jax.random.normal(key, (M, p), dtype=Y.dtype)
     Z = gmat(omega)
@@ -324,8 +337,7 @@ def _deformable_cpd_run(
         def estep(TY, sigma2):
             return _estep(X, TY, sigma2, w)
     else:
-        from .pallas_kernels import cpd_estep_pallas, cpd_estep_tiled
-
+        from .tiled import cpd_estep_tiled
 
         def estep(TY, sigma2):
             c = (
@@ -333,8 +345,7 @@ def _deformable_cpd_run(
                 if w > 0
                 else 0.0
             )
-            fn = cpd_estep_pallas if estep_impl == "pallas" else cpd_estep_tiled
-            return fn(X, TY, sigma2, c)
+            return cpd_estep_tiled(X, TY, sigma2, c)
 
     def cond(state):
         z, sigma2, err, it = state
@@ -452,7 +463,7 @@ class deformable_registration:
         w=0.0,
         verbose=False,
         seed=0,
-        estep_impl=None,  # None = auto: dense small, tiled/pallas large
+        estep_impl=None,  # None = auto: dense small, tiled large
         landmarks=None,  # (Y_indices i32 [L], fixed_positions f32 [L, D],
         #                  weights f32 [L]) prior correspondences
         **_ignored,
@@ -469,12 +480,7 @@ class deformable_registration:
         self.seed = seed
         if estep_impl is None:
             big = self.X.shape[0] * self.Y.shape[0] > 3000 * 3000
-            if big:
-                estep_impl = (
-                    "pallas" if jax.default_backend() == "tpu" else "tiled"
-                )
-            else:
-                estep_impl = "dense"
+            estep_impl = "tiled" if big else "dense"
         self.estep_impl = estep_impl
         if landmarks is not None:
             li, lp, lw = landmarks

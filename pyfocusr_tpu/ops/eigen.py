@@ -1,4 +1,4 @@
-"""Smallest-nonzero eigenpairs of the graph Laplacian, TPU-native.
+"""Smallest-nonzero eigenpairs of the graph Laplacian, on the accelerator.
 
 Replaces the reference's ARPACK shift-invert call
 (``scipy.sparse.linalg.eigs(L, k, sigma=1e-10, which='LM', ncv=4k)`` inside
@@ -11,12 +11,12 @@ vector per connected component):
 
 * ``chebyshev_eigpairs`` (DEFAULT): Chebyshev-filtered subspace iteration —
   ~500 *block* operations total, the right shape for a dispatch-latency-
-  sensitive accelerator; supports the union-graph partition mode.  30x faster
-  than shift-invert Lanczos on a v5e at equal accuracy (|cos| >= 0.9999,
-  eigenvalue err ~3e-5 vs ARPACK).  A bf16 filter variant was evaluated and
-  rejected: recurrence noise pollutes the subspace beyond what the f32
-  polish can repair (|cos| drops to 0.61 on the 5k mesh), and bf16 gathers
-  are no faster on this runtime anyway.
+  sensitive accelerator; supports the union-graph partition mode.  Far
+  fewer sequential operations than shift-invert Lanczos at equal accuracy
+  (|cos| >= 0.9999, eigenvalue err ~3e-5 vs ARPACK).  A bf16 filter
+  variant was evaluated and rejected: recurrence noise pollutes the
+  subspace beyond what the f32 polish can repair (|cos| drops to 0.61 on
+  the 5k mesh).
 * ``lanczos_shift_invert``: deflated shift-invert Lanczos with fixed-iteration
   CG inner solves — the direct analogue of ARPACK's spectral transform:
 
@@ -293,10 +293,10 @@ def chebyshev_eigpairs_wide(
     eigenvalue floor ~100x (VERDICT r2 task 7); the black-box fallback is
     the matvec quotient.
 
-    Round-2 redesign of ``chebyshev_eigpairs`` exploiting a measured TPU
-    fact: the per-step cost of the ELL gather-SpMV is *width-independent* up
-    to 128 lanes (612 us/step at widths 14, 64 AND 128 on the bundled 15k
-    mesh — the gather pays for full 128-lane rows regardless).  A 128-wide
+    Round-2 redesign of ``chebyshev_eigpairs`` exploiting an accelerator
+    fact measured on the hardware it was first written for: the per-step
+    cost of the ELL gather-SpMV was *width-independent* up to 128 columns
+    (the gather paid for full 128-lane rows regardless).  A 128-wide
     subspace therefore costs the same per filter step as the old 14-wide one
     while making the filter's job categorically easier: the modes competing
     with the k wanted ones start at lambda_129 instead of lambda_15, so the
@@ -326,8 +326,7 @@ def chebyshev_eigpairs_wide(
         ordering, correspondence quality) is measurably indifferent, so the
         floor is documented rather than engineered around.
 
-    Measured (v5e, 15k mesh, k=6): 103 ms vs 198 ms for the narrow solver at
-    equal-or-better accuracy.  Returns (lams [k], vecs [N, k], resid [k]).
+    Returns (lams [k], vecs [N, k], resid [k]).
     """
     n = null_vec.shape[0]
     if null_vec.ndim == 1:
@@ -501,9 +500,8 @@ def chebyshev_eigpairs(
     ``filter_op_factory(c, e)`` (static closure) may supply a FUSED scaled
     operator ``op(T) = (2/e) * (A T - c T)`` for the filter recurrence —
     callers that know A's structure can precompute scaled edge weights so one
-    recurrence step costs ~6 primitive ops instead of ~11 (the TPU runtime is
-    per-op latency-bound at these sizes; measured matvec cost is
-    width-independent up to ~32 columns).
+    recurrence step costs ~6 primitive ops instead of ~11 (an accelerator is
+    per-op latency-bound at these sizes).
 
     ``partition_masks`` (f32 [N, P], disjoint 0/1 columns) enables the
     *union-graph* mode: A is block-diagonal over P graph partitions (e.g. the
@@ -515,9 +513,9 @@ def chebyshev_eigpairs(
     nearly identical spectra, so union Ritz vectors would otherwise blend
     components).  Returns (lams [P, k], vecs [N, P, k], resid [P, k]).
 
-    Rationale (TPU performance): shift-invert Lanczos with inner CG costs
-    ``m x cg_iters`` *sequential* tiny ops — latency-bound on TPU (measured
-    ~8 s per 15k mesh).  A Chebyshev filter needs only ``degree`` SpMVs per
+    Rationale (accelerator performance): shift-invert Lanczos with inner CG
+    costs ``m x cg_iters`` *sequential* tiny ops — latency-bound on any
+    accelerator.  A Chebyshev filter needs only ``degree`` SpMVs per
     sweep, each on an [N, b] *block* (vectorized over b columns at no extra
     latency), so the sequential-op count drops by ~10x for the same spectral
     separation.  The filter p_d(A) = T_d((2A - (b+a))/(b-a)) amplifies

@@ -9,7 +9,7 @@ scipy.sparse machinery:
 - random-walk Laplacian  L = G (D - W)     (reference ``graph.py:221-226``)
 - iterative mean filter (graph low-pass)   (reference ``graph.py:320-354``)
 
-TPU design: the sparse matrix never exists.  The graph is (neighbors i32[N,D],
+Design: the sparse matrix never exists.  The graph is (neighbors i32[N,D],
 weights f32[N,D]) with padding masked to weight 0; an SpMV is a gather plus a
 masked weighted reduction over the small static degree axis D — static shapes,
 no scatter, fuses cleanly under jit, and `lax.scan` turns the 40-600-iteration
@@ -220,7 +220,7 @@ def sym_laplacian_matvec(
     A is similar to L = diag(g)(D - W):  L = diag(s) A diag(s)^-1, so they
     share eigenvalues and eigvecs map as u_L = s * v_A.  This makes the
     ARPACK-on-non-symmetric-L contract of the reference (``graph.py:357-389``)
-    solvable with a symmetric TPU eigensolver.  Requires g > 0 (true for the
+    solvable with a symmetric device eigensolver.  Requires g > 0 (true for the
     default d_inv and for the exp feature transform).
     """
     s = jnp.sqrt(g)

@@ -1,9 +1,8 @@
 """Grid-binned EXACT nearest-neighbor queries for large 3-D point sets.
 
-The brute-force kernels in ``ops/knn.py`` are ideal up to ~100k points
-(one MXU/VPU pass, no data structures), but they are O(Nq * Nr): at
-960k x 960k the Pallas kernel measures 3.9 s (nn) / 7.6 s (knn3) and at
-3.84M x 3.84M ~62 s / ~122 s on v5e.  The multires fine tails query in
+The brute-force path in ``ops/knn.py`` is ideal up to a few hundred
+thousand points (one fused pass, no data structures), but it is
+O(Nq * Nr).  The multires fine tails query in
 3-D *physical* space between two nearly-coincident surfaces (reference
 ``focusr.py:391-396, 409-412``), where a uniform voxel grid makes the
 query O(N): bin the reference points into cells of side ``s``, sort by
@@ -22,13 +21,11 @@ Exactness is *certified per row*, not assumed:
   ``knn_query`` — including the cKDTree tie rule (ascending distance,
   lowest original index first), enforced here by a k-pass lexicographic
   (distance^2, index) min-reduction — up to f32 rounding of genuinely
-  ulp-tied neighbors: grid rows compute direct (q - r)^2 differences
-  while the XLA brute path rounds through the matmul identity, so a
-  pair tied to within one ulp can resolve differently (~0.1% of rows on
-  noisy clouds; the TPU Pallas kernel computes the same direct form).
+  ulp-tied neighbors (both compute direct (q - r)^2 differences, but
+  summed in different orders).
 
-TPU mapping (the gather unit is the floor at ~1e8 rows/s, so the design
-minimizes gathered rows per query):
+Accelerator mapping (gathers are the floor, so the design minimizes
+gathered rows per query):
 
 * the 27 neighbor cells are walked as 9 (x, y) *runs* of 3 z-consecutive
   cells — consecutive cell ids, hence one contiguous span of the sorted
@@ -51,14 +48,11 @@ Masked reference rows (coordinates at/above ~1e29, e.g. ``knn.SENTINEL``)
 get an out-of-range cell id, sort to the end of the order, and are never
 candidates, matching the brute kernels' masking semantics.
 
-Measured (v5e, 960k x 960k noisy-sphere, warm): knn3 7.55 s brute ->
-1.63 s grid (fallback 1.2%), nn 3.88 s -> 1.33 s; index agreement
-1.000000 on both.  At 3.84M x 3.84M (bundled 15k subdivided x4): knn3
-~122 s -> ~6.5 s.  Below the crossover the grid's ~1 s fixed cost
-(build + spacing probe + staged dispatches) loses to the brute kernel:
-at 300k x 300k it trails 1.00 vs 0.41 s (nn) and at 500k the two paths
-cross (knn3 1.70 vs 2.08 s, nn 1.49 vs 1.08).  Since round 4 the
-crossover band is settled by MEASUREMENT, not a constant: knn.py routes
+Index agreement with the brute path is 1.000000 on a 960k x 960k
+noisy sphere (fallback 1.2% of rows).  Below the crossover the grid's
+cost (build + spacing probe + staged dispatches) loses to brute force;
+on an H100 the two cross near 6e5 x 6e5 (see knn.py).  The crossover
+band is settled by MEASUREMENT, not a constant: knn.py routes
 sure-win sizes statically and races both exact paths once per
 shape-class bucket in between, persisting the winner per device kind
 (ops/knn_routing.py).  Cell size 1.25x the median d_k, run cap 12

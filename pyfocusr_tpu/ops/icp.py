@@ -6,13 +6,13 @@ RigidBody or Similarity mode, ``StartByMatchingCentroidsOn``, <=100
 iterations), used by ``Focusr.__init__`` to pre-align the meshes
 (``focusr.py:110-131``).
 
-TPU-native: each iteration is one brute-force NN query (MXU-tiled, see
-ops/knn.py) plus a closed-form Umeyama/Kabsch update — the whole loop is a
-single jitted `lax.fori_loop`.  Deliberate deviation from a reference quirk:
-VTK caps landmarks at its default 200 points because the reference sets
+Each iteration is one brute-force NN query (see ops/knn.py) plus a
+closed-form Umeyama/Kabsch update — the whole loop is a single jitted
+`lax.while_loop`.  Deliberate deviation from a reference quirk: VTK caps
+landmarks at its default 200 points because the reference sets
 ``SetMaximumNumberOfLandmarks(1000)`` *after* ``Update()``
 (``vtk_functions.py:27-28`` — documented latent defect, SURVEY §5.3); we use
-all points, which is strictly more accurate and free on TPU.
+all points, which is strictly more accurate and cheap on an accelerator.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def icp(
 
     def body(carry):
         moved, _, _, _, it, _ = carry
-        _, idx = nn_query(target_points, moved, precision=jax.lax.Precision.HIGH)
+        _, idx = nn_query(target_points, moved)
         matched = target_points[idx]
         s, R, t = umeyama(source_points, matched, with_scale, weights=source_mask)
         new_moved = apply_rigid(source_points, s, R, t)

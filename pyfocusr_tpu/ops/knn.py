@@ -4,20 +4,15 @@ The reference uses scipy cKDTree in three places: the eigsort spatial cost
 (``eigsort.py:203-204``), the spectral correspondence search
 (``focusr.py:351-353``), and the k=3 weighted final locations
 (``focusr.py:409-426``); plus dense ``cdist`` for Hungarian mode
-(``focusr.py:342``).  On TPU, brute force wins at these sizes (N <= ~50k,
-D <= ~12): squared distances are one MXU matmul per tile
-(|q|^2 + |r|^2 - 2 q.r), and the argmin/top-k rides along in registers.
+(``focusr.py:342``).  On an accelerator, brute force wins at these sizes
+(N <= ~50k, D <= ~12), and the top-k rides along with the distances.
 
-Two implementations:
-
-* On TPU with D <= 16 (every call site: xyz is D=3, spectral coords are
-  D <= ~12), ``pallas_kernels.knn_pallas`` — direct (q_d - r_d)^2 expansion
-  on the VPU with the running top-k VMEM-resident.  The matmul identity is
-  the wrong tool here: it must run at Precision.HIGHEST (see below) and the
-  MXU pads the D=3 contraction to 128 lanes, so it does ~128/3 x 6-pass the
-  useful FLOPs.
-* Everywhere else, an XLA path (lax.scan over reference tiles, running
-  top-k) using the matmul identity at HIGHEST precision.
+Squared distances are direct coordinate differences, sum_d (q_d - r_d)^2,
+in exact f32, which XLA fuses into the min/argmin (or top-k) that consumes
+them; queries are chunked so one [Nq, Nr] distance block stays bounded.
+On an H100 this plain form was faster end to end than a hand-written
+Pallas/Triton kernel that kept the running top-k in registers, so no
+kernel is kept.
 
 Distances returned are *Euclidean* (sqrt applied at the end), matching
 ``KDTree.query``.
@@ -30,15 +25,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-
-# Distance matmuls MUST run at full f32 precision: the |q|^2+|r|^2-2q.r
-# identity cancels catastrophically, and the TPU MXU's default bf16-pass
-# matmul turns that into O(1) distance errors (observed: wrong neighbors with
-# 1.0+ distance error on unit-scale data).  HIGHEST forces the 6-pass f32
-# MXU path; the matmuls here are tiny, so the 2x cost is irrelevant.
-_PREC = jax.lax.Precision.HIGHEST
-
-from ..utils.precision import f32_matmuls  # noqa: E402
 
 # Masked-out reference rows are pushed to this coordinate so they can never
 # win a nearest-neighbor query.  Single source of truth — pipeline.py
@@ -61,51 +47,37 @@ def _round_up(x: int, m: int) -> int:
 
 
 def pairwise_sq_dists(query: jnp.ndarray, ref: jnp.ndarray) -> jnp.ndarray:
-    """Full [Nq, Nr] squared distances via the matmul identity (use only when
-    the product fits in memory; the tiled paths below avoid materializing it)."""
-    qn = jnp.sum(query * query, axis=1, keepdims=True)
-    rn = jnp.sum(ref * ref, axis=1, keepdims=True)
-    d2 = qn + rn.T - 2.0 * jnp.dot(query, ref.T, precision=_PREC)
-    return jnp.maximum(d2, 0.0)
+    """[Nq, Nr] squared distances by direct coordinate differences.
+
+    Exact f32: no |q|^2+|r|^2-2q.r cancellation and no matmul whose
+    precision could drop to TF32; XLA fuses the difference, square and sum
+    into the reduction that consumes them.  Non-finite reference
+    coordinates (padding or caller data) are pushed to SENTINEL, whose rows
+    square to inf and never win.  The KNN queries, the CPD E-steps and the
+    Hungarian cost all use this one form.  Unchunked, use it only when the
+    [Nq, Nr] product fits in memory; the query paths below chunk it."""
+    ref = jnp.where(jnp.isfinite(ref), ref, SENTINEL)
+    return jnp.sum(jnp.square(query[:, None, :] - ref[None, :, :]), axis=-1)
 
 
-# One [Nq_chunk, tile] distance block must fit in HBM with headroom; at
-# ~1M queries x 8192-tile the unchunked block is 31 GB (observed OOM on the
-# 960k multires probe), so queries are processed in chunks of this many
-# rows.  256M f32 elements = 1 GB per block.
+# One [Nq_chunk, Nr] distance block must fit in device memory with
+# headroom; at ~1M x 1M the unchunked block would be terabytes, so queries
+# are processed in chunks of rows.  256M f32 elements = 1 GB per block.
 _QUERY_CHUNK_ELEMS = 256 * 1024 * 1024
 
 
-def _query_chunks(nq: int, tile: int) -> int:
-    per_chunk = max(_QUERY_CHUNK_ELEMS // max(tile, 1), 1024)
+def _query_chunks(nq: int, nr: int) -> int:
+    per_chunk = max(_QUERY_CHUNK_ELEMS // max(nr, 1), 8)
     return -(-nq // per_chunk)  # ceil
 
 
-def _use_pallas(d_dim: int, nr: int, k: int, use_pallas) -> bool:
-    """Route to the direct-difference kernel?  Measured on v5e at 15k x 15k:
-    nn 3.8 -> 0.5 ms (D=3) / 1.8x (D=8); knn3 12.8 -> 1.0 ms (D=3) / 3.2x
-    (D=8) — the XLA path pays the 128-lane 6-pass MXU padding tax.
-    ``PYFOCUSR_TPU_KNN=xla|pallas`` overrides the routing (decided at trace
-    time) for A/B timing or to work around a Mosaic toolchain regression."""
-    forced = os.environ.get("PYFOCUSR_TPU_KNN", "").lower()
-    if forced == "xla":
-        return False
-    if use_pallas is not None:
-        return bool(use_pallas)
-    # k > 128 would overflow the kernel's 128 top-k lanes (knn_pallas keeps
-    # the running top-k in one 128-wide VMEM block) — route to XLA.
-    if d_dim > 16 or nr < k or k > 128:
-        return False
-    return forced == "pallas" or jax.default_backend() == "tpu"
-
-
-def _chunked_query(impl, ref, query, tile):
-    """Process a large query set in row chunks so one [Nq, tile] distance
+def _chunked_query(impl, ref, query):
+    """Process a large query set in row chunks so one [Nq, Nr] distance
     block never exceeds ~1 GB (identity when one chunk suffices).
     ``impl(ref, query_chunk)`` returns a pytree of [per, ...] arrays; the
     chunked results are re-flattened to the original Nq rows."""
     nq = query.shape[0]
-    n_chunks = _query_chunks(nq, tile)
+    n_chunks = _query_chunks(nq, ref.shape[0])
     if n_chunks <= 1:
         return impl(ref, query)
     per = -(-nq // n_chunks)
@@ -119,66 +91,30 @@ def _chunked_query(impl, ref, query, tile):
     )
 
 
-# The Pallas kernel's (q_blocks x r_blocks) grid faults above ~2^24 cells
-# on this toolchain: a 3.84M x 3.84M query (28.1M cells) reproducibly
-# kills the worker while 960k x 960k (1.8M cells) is fine.  Queries are
-# chunked so one pallas_call stays under this many grid cells.
-_PALLAS_MAX_GRID_CELLS = 8 * 1024 * 1024
-
-
-def _pallas_chunked(ref, query, k):
-    """knn_pallas with the query axis chunked to respect the grid-cell
-    bound (identity when one call suffices).  The chunk loop is UNROLLED
-    (static count), not lax.map-scanned: a pallas_call under lax.map
-    reproducibly faults the remote worker at the 3.84M x 3.84M scale,
-    while the identical per-chunk calls issued sequentially run fine
-    (single 1M x 3.84M chunk: 17.8 s, correct)."""
-    from .pallas_kernels import KNN_BLOCK_Q, KNN_BLOCK_R, knn_pallas
-
-    # Cell estimates use the kernel's own block constants; the bound is
-    # half the observed ~2^24 fault threshold, which also absorbs the
-    # one-row-block overshoot per-chunk rounding can add.
-    nq, nr = query.shape[0], ref.shape[0]
-    cells = (-(-nq // KNN_BLOCK_Q)) * (-(-nr // KNN_BLOCK_R))
-    if cells <= _PALLAS_MAX_GRID_CELLS:
-        return knn_pallas(ref, query, k)
-    n_chunks = -(-cells // _PALLAS_MAX_GRID_CELLS)
-    per = _round_up(max(-(-nq // n_chunks), KNN_BLOCK_Q), KNN_BLOCK_Q)
-    outs = []
-    for s in range(0, nq, per):
-        outs.append(knn_pallas(ref, query[s : s + per], k))
-    d = jnp.concatenate([o[0] for o in outs], axis=0)
-    i = jnp.concatenate([o[1] for o in outs], axis=0)
-    return d, i
-
-
 # Route large UNTRACED 3-D queries to the O(N) voxel-grid path
-# (ops/grid_knn.py) instead of the O(Nq*Nr) brute kernels.  The grid is
+# (ops/grid_knn.py) instead of the O(Nq*Nr) brute path.  The grid is
 # exact (certified per row with brute fallback), so routing is purely a
-# perf decision.  Measured on v5e (noisy-sphere, Nq = Nr = N): the grid
-# pays ~1 s of fixed cost (build + spacing probe + staged dispatches)
-# and then scales ~O(N); brute is ~4.3e-12 s/pair — at 300k brute leads
-# 0.41 vs 1.00 s (nn), at 500k they cross (knn3 2.08 vs 1.70 s), at
-# 960k the grid leads 3.9 -> 1.3 s (nn) / 7.6 -> 1.6 s (knn3) and at
-# 3.84M ~122 -> ~6.5 s.  Between the two SURE bounds below the winner
-# is device-dependent (the r3 static threshold silently cost up to 2.4x
-# in the 300-500k band) — those calls are settled by a MEASURED
-# race-once-per-bucket planner (ops/knn_routing.py) instead of a
-# constant.  The k >= 2 bounds are halved because brute cost grows with
-# k while the grid's is flat.
-_GRID_MIN_PAIRS_DEFAULT = 1.2e11  # below: brute surely wins (< grid fixed cost)
-_GRID_SURE_PAIRS_DEFAULT = 2.4e12  # above: grid surely wins (brute >= ~10 s)
+# perf decision.  Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W power
+# limit), synthetic bone pairs, Nq = Nr = N, k=1, both arms of nn_query:
+# brute runs ~7.8e11-8.1e11 pairs/s (2.07 ms at N=40,962, 34.2 ms at
+# 163,842); the grid costs 23 / 26 / 224 ms at N = 10,242 / 40,962 /
+# 163,842, i.e. ~1.6 us per vertex above ~40k.  Extrapolated, brute and
+# grid cross near N ~ 1.25M (~1.6e12 pairs); below MIN (N ~ 600k) brute
+# takes at most half the grid's time, above SURE (N ~ 2.5M) at least
+# twice it.  Between them the winner depends on the device and the input
+# — those calls are settled by a MEASURED race-once-per-bucket planner
+# (ops/knn_routing.py).  The k >= 2 bounds are halved because brute cost
+# grows with k while the grid's is flat.
+_GRID_MIN_PAIRS_DEFAULT = 3.5e11  # below: brute surely wins
+_GRID_SURE_PAIRS_DEFAULT = 6e12  # above: grid surely wins
 
 
 def _backend_pair_scale() -> float:
-    """The band bounds above are v5e-calibrated (brute ~2.3e11 pairs/s).
-    A CPU backend is ~2 orders slower at brute, so both bounds shrink —
-    without this, a 'race' at 1e12 pairs on CPU would spend minutes on
-    the brute arm it was meant to avoid."""
-    try:
-        return 0.01 if jax.default_backend() == "cpu" else 1.0
-    except Exception:
-        return 1.0
+    """The band bounds above are GPU measurements.  A CPU backend is ~2
+    orders slower at brute, so both bounds shrink — without this, a
+    'race' at 1e12 pairs on CPU would spend minutes on the brute arm it
+    was meant to avoid."""
+    return 1.0 if jax.default_backend() == "gpu" else 0.01
 
 
 def _grid_decision(ref, query, k: int) -> str:
@@ -186,7 +122,7 @@ def _grid_decision(ref, query, k: int) -> str:
     (its per-row fallback needs dynamic shapes), in 3-D, for small k.
     ``PYFOCUSR_TPU_KNN_GRID`` = off|auto|on plus
     ``PYFOCUSR_TPU_KNN_GRID_MIN_PAIRS`` / ``_SURE_PAIRS`` override (all
-    read per call, like the sibling PYFOCUSR_TPU_KNN dial); setting
+    read per call); setting
     MIN_PAIRS == SURE_PAIRS recovers a pure static threshold."""
     mode = os.environ.get("PYFOCUSR_TPU_KNN_GRID", "auto").lower()
     if mode in ("off", "0"):
@@ -228,197 +164,112 @@ def _grid_decision(ref, query, k: int) -> str:
     return "race"
 
 
-def _brute_knn(ref, query, k: int, tile: int = 8192,
-               use_pallas: bool | None = None):
-    """The O(Nq*Nr) k-NN path (Pallas on TPU, tiled XLA elsewhere) —
-    knn_query without the grid routing; also the grid path's fallback."""
-    if _use_pallas(query.shape[1], ref.shape[0], k, use_pallas):
-        return _pallas_chunked(ref, query, k)
-    return _chunked_query(
-        lambda r, q: _knn_query_impl(r, q, k, tile=tile), ref, query, tile
-    )
+@partial(jax.jit, static_argnames=("k",))
+def _brute_knn(ref, query, k: int):
+    """The O(Nq*Nr) k-NN path — knn_query without the grid routing; also
+    the grid path's fallback.  Jitted as a whole, so an untraced call
+    compiles the chunk loop once per shape, not on every call."""
+    return _chunked_query(lambda r, q: _knn_query_impl(r, q, k), ref, query)
 
 
-def nn_query(ref: jnp.ndarray, query: jnp.ndarray, tile: int = 8192,
-             precision=None, use_pallas: bool | None = None):
+@jax.jit
+def _brute_nn(ref, query):
+    """The O(Nq*Nr) 1-NN path of nn_query, jitted like _brute_knn."""
+    return _chunked_query(_nn_query_impl, ref, query)
+
+
+def nn_query(ref: jnp.ndarray, query: jnp.ndarray):
     """Nearest neighbor of each query point among ref points (see
     _nn_query_impl); very large query sets are processed in row chunks so
-    one [Nq, tile] distance block never exceeds ~1 GB.  On TPU with D <= 16
-    this routes to the exact-f32 Pallas kernel (chunked only by the
-    grid-cell bound: it never materializes a distance block); very large
-    untraced 3-D queries route to the O(N) voxel-grid path.  The grid
-    and Pallas routes compute direct f32 differences — at least as
-    accurate as any requested ``precision`` (which only tunes the XLA
-    matmul-identity path; grid fallback rows run at HIGHEST)."""
+    one [Nq, Nr] distance block never exceeds ~1 GB; very large untraced
+    3-D queries route to the O(N) voxel-grid path.  Both routes compute
+    direct f32 coordinate differences."""
     dec = _grid_decision(ref, query, 1)
     if dec != "brute":
         from .grid_knn import knn_grid
 
         def _run_grid():
-            return knn_grid(
-                ref, query, 1,
-                brute=lambda r, q, kk: _brute_knn(
-                    r, q, kk, tile=tile, use_pallas=use_pallas
-                ),
-            )
+            return knn_grid(ref, query, 1, brute=_brute_knn)
 
         if dec == "race":
             from .knn_routing import bucket_key, routed
 
-            d, i = routed(
+            return routed(
                 bucket_key(query.shape[0], ref.shape[0], 1),
-                {
-                    "grid": _run_grid,
-                    "brute": lambda: _brute_knn(
-                        ref, query, 1, tile=tile, use_pallas=use_pallas
-                    ),
-                },
+                {"grid": lambda: _first_column(_run_grid()),
+                 "brute": lambda: _brute_nn(ref, query)},
             )
-        else:
-            d, i = _run_grid()
-        return d[:, 0], i[:, 0]
-    if _use_pallas(query.shape[1], ref.shape[0], 1, use_pallas):
-        d, i = _pallas_chunked(ref, query, 1)
-        return d[:, 0], i[:, 0]
-    return _chunked_query(
-        lambda r, q: _nn_query_impl(r, q, tile=tile, precision=precision),
-        ref, query, tile,
-    )
+        return _first_column(_run_grid())
+    return _brute_nn(ref, query)
 
 
-@partial(jax.jit, static_argnames=("tile", "precision"))
-@f32_matmuls
-def _nn_query_impl(ref: jnp.ndarray, query: jnp.ndarray, tile: int = 8192, precision=None):
+def _first_column(knn_result):
+    d, i = knn_result
+    return d[:, 0], i[:, 0]
+
+
+@jax.jit
+def _nn_query_impl(ref: jnp.ndarray, query: jnp.ndarray):
     """Nearest neighbor of each query point among ref points.
 
     Returns (distances [Nq], indices [Nq]) — the same contract as
-    ``KDTree(ref).query(query)`` (reference ``focusr.py:351-353``).
-    Tiled over the reference axis with a running min, so the [Nq, Nr]
-    distance matrix never exists in HBM.
+    ``KDTree(ref).query(query)`` (reference ``focusr.py:351-353``),
+    lowest index first on ties.
     """
-    prec = _PREC if precision is None else precision
-    nq, d = query.shape
     nr = ref.shape[0]
-    nr_pad = _round_up(max(nr, 1), tile)
-    ref_p = jnp.pad(ref, ((0, nr_pad - nr), (0, 0)), constant_values=SENTINEL)
-    # inf coordinates (padding or caller data) would poison the matmul;
-    # push them to the huge-but-finite SENTINEL instead.
-    ref_p = jnp.where(jnp.isfinite(ref_p), ref_p, SENTINEL)
-    qn = jnp.sum(query * query, axis=1)
-
-    n_tiles = nr_pad // tile
-    ref_tiles = ref_p.reshape(n_tiles, tile, d)
-
-    def step(carry, inputs):
-        best_d2, best_idx = carry
-        t_idx, ref_tile = inputs
-        rn = jnp.sum(ref_tile * ref_tile, axis=1)
-        d2 = qn[:, None] + rn[None, :] - 2.0 * jnp.dot(query, ref_tile.T, precision=prec)
-        col = jnp.argmin(d2, axis=1)
-        val = jnp.take_along_axis(d2, col[:, None], axis=1)[:, 0]
-        idx = t_idx * tile + col
-        take = val < best_d2
-        return (
-            jnp.where(take, val, best_d2),
-            jnp.where(take, idx, best_idx),
-        ), None
-
-    init = (jnp.full((nq,), jnp.inf, query.dtype), jnp.zeros((nq,), jnp.int32))
-    (best_d2, best_idx), _ = jax.lax.scan(
-        step, init, (jnp.arange(n_tiles, dtype=jnp.int32), ref_tiles)
-    )
+    d2 = pairwise_sq_dists(query, ref)
+    best_idx = jnp.argmin(d2, axis=1).astype(jnp.int32)
+    best_d2 = jnp.take_along_axis(d2, best_idx[:, None], axis=1)[:, 0]
     # Rows with no finite neighbor report index nr (cKDTree's
     # missing-neighbor sentinel) — same remap as _knn_query_impl, so the
-    # XLA-nn / Pallas / grid routes agree on degenerate inputs.
+    # nn / knn / grid routes agree on degenerate inputs.
     best_idx = jnp.where(jnp.isinf(best_d2), nr, best_idx)
     return jnp.sqrt(jnp.maximum(best_d2, 0.0)), best_idx
 
 
-def knn_query(ref: jnp.ndarray, query: jnp.ndarray, k: int, tile: int = 8192,
-              use_pallas: bool | None = None):
+def knn_query(ref: jnp.ndarray, query: jnp.ndarray, k: int):
     """k nearest neighbors of each query among ref (see _knn_query_impl);
-    large query sets chunked like nn_query; Pallas kernel on TPU; very
-    large untraced 3-D queries via the O(N) voxel grid."""
+    large query sets chunked like nn_query; very large untraced 3-D
+    queries via the O(N) voxel grid."""
     dec = _grid_decision(ref, query, k)
     if dec != "brute":
         from .grid_knn import knn_grid
 
         def _run_grid():
-            return knn_grid(
-                ref, query, k,
-                brute=lambda r, q, kk: _brute_knn(
-                    r, q, kk, tile=tile, use_pallas=use_pallas
-                ),
-            )
+            return knn_grid(ref, query, k, brute=_brute_knn)
 
         if dec == "race":
             from .knn_routing import bucket_key, routed
 
             return routed(
                 bucket_key(query.shape[0], ref.shape[0], k),
-                {
-                    "grid": _run_grid,
-                    "brute": lambda: _brute_knn(
-                        ref, query, k, tile=tile, use_pallas=use_pallas
-                    ),
-                },
+                {"grid": _run_grid, "brute": lambda: _brute_knn(ref, query, k)},
             )
         return _run_grid()
-    return _brute_knn(ref, query, k, tile=tile, use_pallas=use_pallas)
+    return _brute_knn(ref, query, k)
 
 
-@partial(jax.jit, static_argnames=("k", "tile"))
-@f32_matmuls
-def _knn_query_impl(ref: jnp.ndarray, query: jnp.ndarray, k: int, tile: int = 8192):
+@partial(jax.jit, static_argnames=("k",))
+def _knn_query_impl(ref: jnp.ndarray, query: jnp.ndarray, k: int):
     """k nearest neighbors of each query among ref, ascending by distance.
 
     Returns (distances [Nq, k], indices [Nq, k]) — the contract of
-    ``KDTree(ref).query(query, k=k)`` (reference ``focusr.py:409-412``).
-    Running top-k across reference tiles: merge the current best-k with each
-    tile's best-k via a sort of width 2k.
+    ``KDTree(ref).query(query, k=k)`` (reference ``focusr.py:409-412``);
+    ``lax.top_k`` keeps the lower index first on ties.
     """
-    nq, d = query.shape
     nr = ref.shape[0]
-    nr_pad = _round_up(max(nr, k), tile)
-    ref_p = jnp.pad(ref, ((0, nr_pad - nr), (0, 0)), constant_values=SENTINEL)
-    qn = jnp.sum(query * query, axis=1)
-
-    n_tiles = nr_pad // tile
-    ref_tiles = ref_p.reshape(n_tiles, tile, d)
-
-    def step(carry, inputs):
-        best_d2, best_idx = carry  # [Nq, k]
-        t_idx, ref_tile = inputs
-        rn = jnp.sum(ref_tile * ref_tile, axis=1)
-        d2 = qn[:, None] + rn[None, :] - 2.0 * jnp.dot(query, ref_tile.T, precision=_PREC)
-        # Mask padded reference rows.
-        valid = (t_idx * tile + jnp.arange(tile)) < nr
-        d2 = jnp.where(valid[None, :], d2, jnp.inf)
-        tile_d2, tile_col = jax.lax.top_k(-d2, k)
-        tile_d2 = -tile_d2
-        tile_idx = t_idx * tile + tile_col
-        cat_d2 = jnp.concatenate([best_d2, tile_d2], axis=1)
-        cat_idx = jnp.concatenate([best_idx, tile_idx], axis=1)
-        neg_top, pos = jax.lax.top_k(-cat_d2, k)
-        new_idx = jnp.take_along_axis(cat_idx, pos, axis=1)
-        return (-neg_top, new_idx), None
-
-    init = (
-        jnp.full((nq, k), jnp.inf, query.dtype),
-        jnp.zeros((nq, k), jnp.int32),
-    )
-    (best_d2, best_idx), _ = jax.lax.scan(
-        step, init, (jnp.arange(n_tiles, dtype=jnp.int32), ref_tiles)
-    )
-    # nr < k: the missing neighbors carry inf distance (and an arbitrary
-    # padded/initial index); remap those to index nr — cKDTree's
-    # missing-neighbor sentinel (index == n, distance == inf) — so callers
-    # can detect them.  SENTINEL-coordinate reference rows also report inf
-    # and are equally non-neighbors, so the same sentinel applies.
+    d2 = pairwise_sq_dists(query, ref)
+    if nr < k:
+        d2 = jnp.pad(d2, ((0, 0), (0, k - nr)), constant_values=jnp.inf)
+    neg_d2, best_idx = jax.lax.top_k(-d2, k)
+    best_d2 = -neg_d2
+    # nr < k: the missing neighbors carry inf distance (and a padded
+    # index); remap those to index nr — cKDTree's missing-neighbor
+    # sentinel (index == n, distance == inf) — so callers can detect them.
+    # SENTINEL-coordinate reference rows also report inf and are equally
+    # non-neighbors, so the same sentinel applies.
     best_idx = jnp.where(jnp.isinf(best_d2), nr, best_idx)
     return jnp.sqrt(jnp.maximum(best_d2, 0.0)), best_idx
-
-
 
 
 def knn3_masked(ref_positions, ref_mask, query_points):
@@ -431,8 +282,7 @@ def knn3_masked(ref_positions, ref_mask, query_points):
     correspondence is exactly column 0 of the k=3 result (identical
     tie rule: ascending distance, lowest index first — the cKDTree
     contract both ``nn_query`` and ``knn_query`` implement).  Fusing them
-    removes an entire [Nq, Nr] NN pass from every refine tail (measured
-    3.9 s at 960k x 960k, ~62 s at 3.84M with the Pallas kernel)."""
+    removes an entire [Nq, Nr] NN pass from every refine tail."""
     ref_q = jnp.where(ref_mask[:, None] > 0, ref_positions, SENTINEL)
     return knn_query(ref_q, query_points, k=3)
 

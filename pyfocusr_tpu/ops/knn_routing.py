@@ -1,14 +1,15 @@
 """Measured KNN path routing: race-once-per-shape-class planner.
 
-VERDICT r3 task #5: the static brute/grid crossover in ``knn.py`` had a
-known 300-500k band where the wrong path silently costs up to 2.4x (the
-crossover moves with device generation, HBM bandwidth, and host speed).
-Instead of a hand-tuned constant, routing inside the ambiguous band is
+The brute/grid crossover of ``knn.py`` moves with the device
+generation, memory bandwidth and host speed, so near it any fixed
+constant picks the wrong path for some machine.  Instead of a hand-tuned
+constant, routing inside the ambiguous band is
 MEASURED on the actual device, FFTW-planner style:
 
-* outside the band the physics is unambiguous (brute is O(Nq*Nr) with
-  ~4.3e-12 s/pair on v5e; the grid pays ~1 s fixed then ~O(N)), so the
-  static bounds decide immediately;
+* outside the band the physics is unambiguous (brute is O(Nq*Nr) at
+  ~8e11 pairs/s on an H100; the grid pays ~1.6 us per vertex, see
+  ``knn._GRID_MIN_PAIRS_DEFAULT``), so the static bounds decide
+  immediately;
 * the first call inside the band for a given (k-class, log2-pairs
   bucket) runs BOTH paths — one untimed warm-up (compiles must not vote)
   plus one timed run each — returns the faster path's result, and
@@ -67,8 +68,8 @@ def cache_file() -> str:
 
 def bucket_key(nq: int, nr: int, k: int) -> str:
     """Shape-class bucket: log2 k-class x log2 of the pair count x log2
-    of the SMALLER side.  Factor-of-2 buckets span the ~1.2e11..2e12
-    ambiguous band in ~5 buckets per class; the min-side component keeps
+    of the SMALLER side.  Factor-of-2 buckets span the ~3.5e11..6e12
+    ambiguous band in ~4 buckets per class; the min-side component keeps
     extreme aspect ratios apart — grid cost scales with the REFERENCE
     size while brute scales with the product, so a winner raced at
     1e4 x 1e8 must not be misapplied to 1e6 x 1e6 (review finding r4).

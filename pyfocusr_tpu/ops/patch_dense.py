@@ -1,33 +1,27 @@
-"""Patch-dense Laplacian operator: MXU blocks + compacted residual gather.
+"""Patch-dense Laplacian operator: dense blocks + compacted residual gather.
 
-Round-5 filter-step redesign (VERDICT r4 #1).  The wide-Chebyshev
-eigensolver spends ~90% of its device time in the ELL neighbor-gather
-SpMM ``sd*T - einsum("nd,ndc->nc", sw, T[neighbors])``, which measures
-~280 us/step at 15k x 8 x 128 on v5e — ~30% of HBM peak (the round-4
-roofline's "99.9% of peak / 94.6 us" was a congestion artifact of its
-t20-vs-t420 methodology; re-measured with in-program loop repetition,
-min-of-reps, across sessions).  Measured facts that shape this design
-(all v5e, 15k mesh, [N,128] block, fori-loop amortized):
+A filter-step redesign.  The wide-Chebyshev eigensolver spends most of its
+device time in the ELL neighbor-gather SpMM
+``sd*T - einsum("nd,ndc->nc", sw, T[neighbors])``.  The design rests on
+three facts measured on the accelerator it was first written for (15k
+mesh, [N,128] block); whether they hold on an H100 is not measured yet:
 
-* the multi-column ELL gather costs ~120 us fixed + ~23 us per degree
-  column — it is ISSUE-bound, not bandwidth-bound (bf16 payloads do not
-  help: 274 us vs 269 f32);
+* the multi-column ELL gather is ISSUE-bound, not bandwidth-bound (bf16
+  payloads do not help), with a cost that grows with every degree column;
 * a single-index-per-row gather ``T[idx]`` ([N] -> [N,128] rows) is the
-  fast path: ~14 us;
-* a batched dense [P,128,128] x [P,128,128] einsum runs on the MXU in
-  ~30 us — 10x cheaper than the D=8 gather it can replace — and at
-  precision=HIGHEST it is exact f32 (and no slower).
+  fast path;
+* a batched dense [P,128,128] x [P,128,128] einsum is much cheaper than
+  the D=8 gather it can replace, and at precision=HIGHEST it is exact f32.
 
 So: partition the vertices into BFS patches of 128, renumber
 patch-contiguously, store all INTRA-patch edges as dense [P,128,128]
-blocks (a batched MXU matmul per step), and keep only the ~14% of
+blocks (a batched matmul per step), and keep only the ~14% of
 CROSS-patch edges as a residual compacted to the ~37% boundary rows,
 applied with unrolled single-index row gathers.  Everything stays exact
 f32 (scatter-free apply; the boundary add rides a zero-padded row
-gather).  Measured composite: ~150-160 us/step vs 286 — **1.8x** —
-with max|diff| = 0 vs the ELL op at HIGHEST on the bundled 15k mesh
-(f32 summation order differs only where a row has both intra and cross
-edges; observed differences are ~1e-7 relative).
+gather), with max|diff| = 0 vs the ELL op at HIGHEST on the bundled 15k
+mesh (f32 summation order differs only where a row has both intra and
+cross edges; observed differences are ~1e-7 relative).
 
 Scope: the plan is built host-side once per mesh (numpy BFS; ~0.1 s at
 15k) and attached to ``GraphArrays.patch_plan``; ``pipeline._spectrum``

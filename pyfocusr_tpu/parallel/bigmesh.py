@@ -1,22 +1,22 @@
-"""Intra-mesh model parallelism: ONE giant registration sharded over chips.
+"""Intra-mesh model parallelism: ONE giant registration sharded over devices.
 
-``parallel/cohort.py`` distributes *pairs* (data parallelism — BASELINE
-config 5).  This module distributes a *single* multi-million-vertex pair's
+``parallel/cohort.py`` distributes *pairs* (data parallelism).  This module distributes a *single* multi-million-vertex pair's
 fine-level stages over a device mesh, the missing half of the scaling
 story: the reference tops out at 15k vertices single-threaded (SURVEY
-§2/§5.7), the single-chip multires path here reaches 3.84M, and beyond
-that one chip's HBM and wall-clock become the wall.  The fine-level
+§2/§5.7), the single-device multires path here reaches millions of
+vertices, and beyond that one device's memory and wall-clock become the
+wall.  The fine-level
 refinement (the reference's correspondence-smoothing + final-location
 stages, ``focusr.py:368-431``) is where multires spends its time at that
 scale, and it decomposes cleanly:
 
 * **Graph smoothing** (the 40-600-step mean filter): vertex rows are
   sharded over the 'verts' mesh axis; each step ``all_gather``s the
-  current iterate (f32 [N, 3] — 46 MB at 3.84M vertices, ICI-sized),
+  current iterate (f32 [N, 3] — 46 MB at 3.84M vertices),
   applies the device's local ELL rows + hub-overflow edges, and keeps its
   shard.  Communication per step is the iterate, NOT the graph: neighbor
-  tables, weights and degrees stay resident on their owner chip, so HBM
-  use per chip is O(N/P).
+  tables, weights and degrees stay resident on their owner device, so
+  memory per device is O(N/P).
 * **KNN / IDW final locations**: query rows sharded, reference replicated
   (brute-force KNN is embarrassingly parallel over queries).
 
@@ -286,7 +286,7 @@ def _build_program(cfg, device_mesh: Mesh, axis: str):
     def spec_tree(tree):
         return jax.tree.map(lambda _: P(axis), tree)
 
-    @f32_matmuls  # the MXU's default bf16 matmul passes corrupt the
+    @f32_matmuls  # a default-precision (TF32) matmul would corrupt the
     def run(tgt, src, ic):  # SpMV einsum / KNN numerics (utils/precision.py)
         fn = shard_map(
             shard_fn,
@@ -341,7 +341,7 @@ def refine_fine_level_sharded(target, source, init_corr, cfg, device_mesh: Mesh)
     # Key on device IDENTITY (not mesh object identity): callers often build
     # a fresh Mesh per call, and a rebuilt shard_map closure would defeat
     # jit's executable cache.  platform+id, not id alone: device ids restart
-    # at 0 per backend, so a CPU debug mesh and a TPU mesh would collide.
+    # at 0 per backend, so a CPU debug mesh and a GPU mesh would collide.
     dev_ids = tuple((d.platform, d.id) for d in device_mesh.devices.ravel())
     cache_key = (cfg, axis, dev_ids)
     prog = _PROGRAM_CACHE.get(cache_key)

@@ -1,19 +1,20 @@
 """Cohort data-parallelism: batched template-to-subject registration sharded
-over a TPU device mesh.
+over a device mesh.
 
 The reference has no distributed code at all (SURVEY §2: "no DP/TP/PP/...");
-its scalability story is subsampling.  The TPU-native framework's first-class
-distributed feature (BASELINE.json config 5) is *cohort* parallelism: register
+its scalability story is subsampling.  This framework's first-class
+distributed feature is *cohort* parallelism: register
 one template mesh against N subject meshes — the statistical-shape-model
 workload hinted at by ``target_eigenmap_as_reference`` (reference
 ``focusr.py:32-35``) and the dead all-pairs harness (``pyfocusr/test.py``) —
-with one (or more) pairs per chip.
+with one (or more) pairs per device.
 
 Design: subjects are padded to a common static shape (pipeline.GraphArrays
-valid_mask machinery), stacked on a leading cohort axis, and the jitted
-``register_pair`` is vmapped over that axis inside a ``shard_map`` over the
-'cohort' mesh axis.  Collectives: the cohort-mean template update is a
-``psum`` over ICI.  Everything per-pair stays single-chip (SURVEY §5.8).
+valid_mask machinery), stacked on a leading cohort axis, and each device
+registers its shard of that axis one subject after another inside a
+``shard_map`` over the 'cohort' mesh axis.  Collectives: the cohort-mean
+template update is a ``psum`` across devices.  Everything per-pair stays on
+one device (SURVEY §5.8).
 """
 
 from __future__ import annotations
@@ -106,15 +107,26 @@ def stack_graph_arrays(graphs: Sequence[GraphArrays]) -> GraphArrays:
 
 
 def _batched_register(targets, template, cfg, keys, prep=None):
-    """vmap register_pair over the cohort axis; template (and its prepared
-    spectrum, when hoisted) broadcast into every lane."""
+    """register_pair for each subject of the cohort axis, one after another
+    (``lax.map``); the template (and its prepared spectrum, when hoisted)
+    is shared by all of them.
+
+    Not vmapped: a vmapped registration compiles to a different program
+    for each batch size, and the last-bit differences between those
+    programs come out as different correspondences — the CPD keeps every
+    low-rank Gaussian mode, as cycpd does, and the tail modes sit at the
+    f32 noise floor.  (Measured on XLA:CPU, 8 subjects of 642 vertices:
+    vmapped over 2 per device against 8 on one device, eigenvectors and
+    eigsort equal bit for bit, CPD-moved spectral coordinates apart by
+    up to 1e-2, 2.6% of correspondences different.)  One per-subject program
+    gives the same registrations on any number of devices."""
     if prep is None:
-        fn = lambda t, k: register_pair(t, template, cfg, k)
+        fn = lambda tk: register_pair(tk[0], template, cfg, tk[1])
     else:
-        fn = lambda t, k: register_pair_prepared_source(
-            prep, t, template, cfg, k
+        fn = lambda tk: register_pair_prepared_source(
+            prep, tk[0], template, cfg, tk[1]
         )
-    return jax.vmap(fn, in_axes=(0, 0))(targets, keys)
+    return jax.lax.map(fn, (targets, keys))
 
 
 def check_cohort_config(
@@ -173,7 +185,7 @@ def register_cohort(
 
     With a device mesh, the cohort axis is sharded over the 'cohort' mesh
     axis via shard_map and the cohort-mean template update is computed with a
-    cross-chip psum.  Returns (per-pair results pytree, mean_shape [N, 3]).
+    cross-device psum.  Returns (per-pair results pytree, mean_shape [N, 3]).
 
     The per-pair direction matches the SSM workflow the reference documents
     at ``focusr.py:32-35``: the template is the *source*, each cohort subject
@@ -182,15 +194,15 @@ def register_cohort(
 
     ``prepared_template`` hoists the template's eigensolve out of the
     per-pair fan-out (``pipeline.prepare_source``): it runs ONCE and the
-    spectrum broadcasts into every vmap lane instead of being recomputed
-    per pair.  Default (None) enables the hoist whenever the config
+    spectrum is shared by every subject instead of being recomputed per
+    pair.  Default (None) enables the hoist whenever the config
     permits it (``pipeline.source_spectrum_hoistable`` — always true for
     rigid/absent ICP); passing True forces it (raising on non-hoistable
     configs), False disables it.
     """
     batch = jax.tree.leaves(targets)[0].shape[0]
     # One host transfer for the whole batch (a per-subject float() loop
-    # would be B blocking round-trips on the remote runtime).
+    # would be B blocking device-to-host copies).
     min_real = int(np.min(np.sum(np.asarray(targets.valid_mask), axis=1)))
     min_real = min(min_real, int(np.sum(np.asarray(template.valid_mask))))
     # 'hungarian' padding hazard: padding on EITHER side of a pair lets
@@ -269,7 +281,7 @@ def iterate_template(
     """Groupwise template iteration — the standard SSM loop.
 
     Each round registers the current template to every cohort subject
-    (``register_cohort``: one sharded fan-out + one cross-chip ``psum``) and
+    (``register_cohort``: one sharded fan-out + one cross-device ``psum``) and
     moves the template's vertices to the cohort-mean corresponding locations.
     The template TOPOLOGY is fixed; only its geometry evolves, so every
     iteration reuses the same compiled executable (static shapes).
@@ -397,7 +409,7 @@ def cohort_shape_modes(corresponded_points, n_modes: int | None = None):
     synthesized as ``mean + sum_i b_i * sqrt(variances[i]) * modes[i]``.
     At most B-1 modes are nonzero; ``n_modes`` truncates further.
 
-    TPU shape: the PCA runs through the [B, B] Gram matrix of centered
+    Accelerator shape: the PCA runs through the [B, B] Gram matrix of centered
     flattened shapes (B = cohort size << 3N), so device work is one
     [B, 3N] x [3N, B] matmul + a tiny eigh — no [3N, 3N] covariance ever
     materializes.

@@ -11,16 +11,17 @@ module adds the two registration modes the ROADMAP lists beyond parity:
   the forward/backward-consistency diagnostics that a one-directional run
   cannot provide.
 * ``register_all_pairs`` — register every ordered pair of a cohort jointly
-  (one vmapped/sharded fan-out over a 'pairs' device-mesh axis, the same
-  SPMD pattern as ``cohort.register_cohort``), with transitive
+  (one fan-out over a 'pairs' axis, optionally sharded over a device mesh,
+  the same SPMD pattern as ``cohort.register_cohort``), with transitive
   cycle-consistency metrics over vertex-index compositions.
 * ``synchronize_correspondences`` — map synchronization: replace each direct
   map j->i with the consensus of all two-hop compositions j->k->i, the
   groupwise refinement that makes the pairwise maps mutually consistent.
 
-TPU shape: the heavy work (B*(B-1) full registrations) is a single vmap over
-a stacked pairs axis — one compiled executable, MXU-resident — optionally
-``shard_map``-ed over a device mesh; the synchronization/consistency passes
+Accelerator shape: the heavy work (B*(B-1) full registrations) is one
+``lax.map`` over a stacked pairs axis — one compiled per-pair program, the
+same on any number of devices (see ``cohort._batched_register``) —
+optionally ``shard_map``-ed over a device mesh; the synchronization/consistency passes
 are O(B^3) cheap gathers done in numpy on host (B is tens at most, N is
 thousands: the gathers are microseconds and keeping them on host avoids
 shipping [B^2, N] index tensors through jit).
@@ -172,8 +173,8 @@ def register_all_pairs(
 ):
     """Jointly register every ORDERED pair of a cohort.
 
-    All B*(B-1) registrations run as ONE vmapped program over a stacked
-    pairs axis (optionally ``shard_map``-ed over the 'pairs' axis of
+    All B*(B-1) registrations run as ONE program over a stacked pairs
+    axis, one pair after another (optionally ``shard_map``-ed over the 'pairs' axis of
     ``device_mesh``; when the device count does not divide the pair count
     the batch is PADDED with dummy pairs — replicas of pair 0, dropped
     after the run — so every device stays active on any cohort size; the
@@ -210,9 +211,10 @@ def register_all_pairs(
     keys = jax.random.split(key, len(pair_index))
 
     def _batched(tgts, srcs, ks):
-        return jax.vmap(
-            lambda t, s, k: register_pair(t, s, cfg, k)
-        )(tgts, srcs, ks)
+        return jax.lax.map(
+            lambda tsk: register_pair(tsk[0], tsk[1], cfg, tsk[2]),
+            (tgts, srcs, ks),
+        )
 
     if device_mesh is None:
         results = _batched(targets, sources, keys)
@@ -230,8 +232,8 @@ def register_all_pairs(
         if n_padded != n_pairs:
             # Dummy pairs (replicas of pair 0) fill the last shard so the
             # axis divides evenly — all devices active on any cohort size
-            # (MULTICHIP r3 finding: the 6-pair dryrun left 2 of 8
-            # devices idle).  Dropped below before results are returned.
+            # (6 pairs on 8 devices would leave 2 idle).  Dropped below
+            # before results are returned.
             extra = n_padded - n_pairs
             pad = lambda a: jnp.concatenate(
                 [a, jnp.repeat(a[:1], extra, axis=0)], axis=0
@@ -241,9 +243,8 @@ def register_all_pairs(
             keys = pad(keys)
         spec = lambda tree: jax.tree.map(lambda _: P("pairs"), tree)
         # out_specs as a pytree PREFIX: every output leaf has a leading
-        # pairs axis, so a single P('pairs') covers the whole tree — the
-        # previous jax.eval_shape(_batched, ...) abstract-traced the entire
-        # vmapped registration a second time just to enumerate leaves.
+        # pairs axis, so a single P('pairs') covers the whole tree (no
+        # second abstract trace of the registration to enumerate leaves).
         fn = shard_map(
             _batched,
             mesh=device_mesh,
@@ -363,12 +364,12 @@ def spectral_bases(
     by sqrt(n_real) so descriptor rows are O(1) regardless of mesh size —
     the basis convention ``synchronize_spectral`` assumes.
 
-    NEGATIVE RESULT (round 3, measured on v5e): vmapping all B eigensolves
-    into ONE program is 0.84x — SLOWER than B sequential dispatches
-    (8 x 5k cohort: 0.372 s loop vs 0.444 s vmapped, warm).  Same root
-    cause as the union/batched pair-spectra result (experiments.py): the
-    [B, N, k]-batched ELL gather serializes worse than independent solves.
-    The sequential loop is deliberate.
+    NEGATIVE RESULT (round 3, on the hardware the repo first targeted;
+    not re-measured on a GPU): vmapping all B eigensolves into ONE
+    program was SLOWER than B sequential dispatches.  Same root cause as
+    the union/batched pair-spectra result (experiments.py): the
+    [B, N, k]-batched ELL gather serialized worse than independent
+    solves.  The sequential loop is deliberate.
     """
     keys = jax.random.split(key, max(len(graphs), 1))
     out = []
@@ -441,7 +442,7 @@ def synchronize_spectral(
     violation cannot be attributed to either map); for B == 2 nothing is
     flagged.
 
-    TPU shape: eigensolves and descriptor/consensus NN snaps run on
+    Accelerator shape: eigensolves and descriptor/consensus NN snaps run on
     device; only the [B*k, B*k] block eigenproblem (k, B tens at most)
     runs on host.
 

@@ -13,7 +13,7 @@ Python loops:
     via exact sorted-quantile W1 (ops/wasserstein.py).
   * c_spatial / c_spatial_f — RMS eigenvector difference over nearest-neighbor
     pairs in normalized xyz (reference ``eigsort.py:191-233``), with the NN
-    query as the brute-force MXU kernel and the k x k reduction as one matmul.
+    query as the brute-force device KNN and the k x k reduction as one matmul.
 
 The final assignment (k ~ 6-10) solves on host (ops/assignment.lap_host).
 The class mirrors the reference's *mutating* contract — ``sort_eigenmaps()``

@@ -8,7 +8,7 @@ Differences from the host version (spectral/eigsort.py):
     enumeration (ops/assignment.exact_lap_small, k <= 8; exact device JV
     beyond) instead of host JV;
   * the column permutation + sign flip are applied with a one-hot permutation
-    matrix (an MXU matmul) because gather indices are traced;
+    matrix (a matmul) because gather indices are traced;
   * both the equal-sample-size (sorted-difference) and unequal-sample-size
     (merged-CDF, vmapped) Wasserstein paths are supported; sample counts are
     static shapes, so the choice happens at trace time.
@@ -157,7 +157,7 @@ def sort_eigenmaps_jit(
     )
     # Permutation matrix: out[:, r] = in[:, src_of_tgt[r]] (after flip).
     P = jax.nn.one_hot(src_of_tgt, k, dtype=jnp.float32).T
-    # HIGHEST precision: at the MXU default this one-hot permutation
+    # HIGHEST precision: at the default (TF32 on a GPU) this one-hot permutation
     # would round every eigenvector entry to bf16 when the public
     # entry point is called outside an f32_matmuls scope.
     vecs = jnp.matmul(eig_vecs_to_permute * sign[None, :], P, precision=_PREC)

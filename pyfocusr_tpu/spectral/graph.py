@@ -1,6 +1,6 @@
 """Graph / spectral layer: feature-weighted mesh Laplacian and its spectrum.
 
-TPU-native re-design of the reference ``Graph`` class (``graph.py:18-354``):
+JAX re-design of the reference ``Graph`` class (``graph.py:18-354``):
 the adjacency matrix never exists — the graph lives as a padded ELL neighbor
 table (see mesh.build_topology) with weights computed on device, the Laplacian
 is matrix-free, the eigensolve is deflated shift-invert Lanczos (ops/eigen.py)

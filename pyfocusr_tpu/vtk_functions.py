@@ -1,5 +1,5 @@
 """API-parity module mirroring reference ``pyfocusr/vtk_functions.py`` on top
-of the TPU-native mesh/ops stack — same function names, VTK nowhere in the
+of the JAX mesh/ops stack — same function names, VTK nowhere in the
 compute path (VTK remains an optional I/O adapter only, per SURVEY §2.3).
 
 Mapping (reference file:line -> here):
@@ -52,7 +52,7 @@ def icp_transform(
 
     ``number_landmarks`` is accepted for signature parity but unused: the
     reference sets it after Update() so it never took effect either
-    (``vtk_functions.py:27-28``), and the TPU NN kernel is cheap enough to use
+    (``vtk_functions.py:27-28``), and the device NN query is cheap enough to use
     every point.
     """
     target, source = as_trimesh(target), as_trimesh(source)

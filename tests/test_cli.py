@@ -8,8 +8,23 @@ import sys
 import numpy as np
 import pytest
 
+from conftest import DATA, SYNTHETIC_FIXTURES
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = "/root/reference/data"
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory, mesh_5k_target, mesh_5k_source):
+    """The bundled reference data, or the seeded synthetic pair (conftest)
+    written under the bundled file names."""
+    if not SYNTHETIC_FIXTURES:
+        return DATA
+    from pyfocusr_tpu.mesh import save_mesh
+
+    d = tmp_path_factory.mktemp("data")
+    save_mesh(str(d / "target_mesh.vtk"), mesh_5k_target)
+    save_mesh(str(d / "source_mesh.vtk"), mesh_5k_source)
+    return str(d)
 
 
 def _run_cli(args, timeout=900):
@@ -29,12 +44,12 @@ def _run_cli(args, timeout=900):
     )
 
 
-def test_info():
-    proc = _run_cli(["info", f"{DATA}/source_mesh.vtk"])
+def test_info(data_dir, mesh_5k_source):
+    proc = _run_cli(["info", f"{data_dir}/source_mesh.vtk"])
     assert proc.returncode == 0, proc.stderr[-500:]
     out = json.loads(proc.stdout[proc.stdout.index("{"):])
-    assert out["points"] == 5000
-    assert out["triangles"] == 9996
+    assert out["points"] == mesh_5k_source.n_points
+    assert out["triangles"] == np.asarray(mesh_5k_source.triangles).shape[0]
     assert out["euler_characteristic"] == 2  # closed genus-0 surface
 
 
@@ -552,7 +567,7 @@ def test_cfg_fingerprint_stable_across_field_additions():
     assert not _fingerprint_matches("not a fingerprint (", cfg)
 
 
-def test_prepared_state_loads_across_fingerprint_format(tmp_path):
+def test_prepared_state_loads_across_fingerprint_format(tmp_path, data_dir):
     """End-to-end: a prepared-target .npz whose embedded fingerprint was
     written in the legacy full-repr format still loads under the same
     config (and still fails loudly under a different one)."""
@@ -573,7 +588,7 @@ def test_prepared_state_loads_across_fingerprint_format(tmp_path):
     import jax
 
     cfg = PipelineConfig()
-    mesh = load_mesh(f"{DATA}/target_mesh.vtk")
+    mesh = load_mesh(f"{data_dir}/target_mesh.vtk")
     tgt = mesh_to_graph_arrays(mesh)
     prep = prepare_target(tgt, cfg, jax.random.PRNGKey(0))
     path = str(tmp_path / "prep.npz")
@@ -690,15 +705,15 @@ class TestFeaturesFlag:
         assert f.shape == (pts.shape[0], 2)
         assert f.min() >= 0.0 and f.max() <= 1.0  # Graph normalization
 
-    def test_flag_validation(self, tmp_path):
+    def test_flag_validation(self, tmp_path, data_dir):
         proc = _run_cli(
-            ["register", f"{DATA}/target_mesh.vtk", f"{DATA}/source_mesh.vtk",
+            ["register", f"{data_dir}/target_mesh.vtk", f"{data_dir}/source_mesh.vtk",
              "--features-in-adjacency", "-o", str(tmp_path)]
         )
         assert proc.returncode == 2
         assert "requires --features" in proc.stderr
         proc = _run_cli(
-            ["register", f"{DATA}/target_mesh.vtk", f"{DATA}/source_mesh.vtk",
+            ["register", f"{data_dir}/target_mesh.vtk", f"{data_dir}/source_mesh.vtk",
              "--features", "no_such_array", "-o", str(tmp_path)]
         )
         assert proc.returncode == 2
@@ -764,24 +779,25 @@ def test_compute_node_features_multicomponent(tmp_path):
     assert np.all(np.isfinite(f)) and f.min() >= 0 and f.max() <= 1
 
 
-def test_convert_command(tmp_path):
+def test_convert_command(tmp_path, data_dir, mesh_5k_source):
     """`pyfocusr-tpu convert`: format round-trip through every writer."""
     proc = _run_cli(
-        ["convert", f"{DATA}/source_mesh.vtk", str(tmp_path / "m.vtp")]
+        ["convert", f"{data_dir}/source_mesh.vtk", str(tmp_path / "m.vtp")]
     )
     assert proc.returncode == 0, proc.stderr[-500:]
     out = json.loads(proc.stdout[proc.stdout.index("{"):])
-    assert out["points"] == 5000 and "thickness_change_(mm)" in out["point_data"]
+    assert out["points"] == mesh_5k_source.n_points
+    assert "thickness_change_(mm)" in out["point_data"]
     proc = _run_cli(["convert", str(tmp_path / "m.vtp"), str(tmp_path / "m.ply")])
     assert proc.returncode == 0
     from pyfocusr_tpu import load_mesh
 
     back = load_mesh(str(tmp_path / "m.ply"))
-    orig = load_mesh(f"{DATA}/source_mesh.vtk")
+    orig = load_mesh(f"{data_dir}/source_mesh.vtk")
     np.testing.assert_allclose(
         np.asarray(back.points), np.asarray(orig.points), atol=1e-4
     )
-    proc = _run_cli(["convert", f"{DATA}/source_mesh.vtk", str(tmp_path / "m.xyz")])
+    proc = _run_cli(["convert", f"{data_dir}/source_mesh.vtk", str(tmp_path / "m.xyz")])
     assert proc.returncode == 2 and "unsupported output extension" in proc.stderr
 
 

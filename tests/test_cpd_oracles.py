@@ -1,6 +1,6 @@
 """CPD oracle-independence gates (round-3, VERDICT item 1).
 
-Round 2's CPD parity chain compared the TPU implementation against the
+Round 2's CPD parity chain compared the JAX implementation against the
 builder's own f64 re-derivation of the Myronenko & Song equations — a
 shared misreading of cycpd's conventions would have passed every gate on
 both sides.  ``tools/pycpd_oracle.py`` closes that hole: it transcribes the
@@ -14,7 +14,7 @@ These tests prove three things:
 
 1. The two oracles genuinely DIFFER where the conventions differ (so the
    new oracle is not a rename of the old one).
-2. The TPU implementation agrees with the pycpd-faithful oracle on
+2. The JAX implementation agrees with the pycpd-faithful oracle on
    reference-shaped configurations.
 3. The golden gates (tests/test_golden_parity.py) now run against goldens
    generated THROUGH the pycpd code path — regenerated after this module's
@@ -143,13 +143,13 @@ class TestPycpdOracleBehaves:
 
 
 class TestTpuMatchesPycpdOracle:
-    """The TPU CPD (ops/cpd.py) vs the pycpd-faithful oracle on
+    """The JAX CPD (ops/cpd.py) vs the pycpd-faithful oracle on
     reference-shaped configurations (large beta => the kernel spectrum is
     fully captured by num_eig, which is the regime the reference pipeline
     always runs: beta=50 on ~unit spectral clouds)."""
 
     def test_deformable_reference_config(self):
-        from pyfocusr_tpu.ops import cpd as tpu_cpd
+        from pyfocusr_tpu.ops import cpd as jax_cpd
 
         X, Y, full = _clouds(n=500, n_out=800)
         kw = dict(num_eig=100, max_iterations=100, tolerance=1e-8,
@@ -158,7 +158,7 @@ class TestTpuMatchesPycpdOracle:
         ref.register()
         ref_out = ref.transform_point_cloud(full)
 
-        dev = tpu_cpd.deformable_registration(X=X, Y=Y, **kw)
+        dev = jax_cpd.deformable_registration(X=X, Y=Y, **kw)
         dev.register()
         dev_out = np.asarray(dev.transform_point_cloud(full), np.float64)
 
@@ -167,7 +167,7 @@ class TestTpuMatchesPycpdOracle:
         assert err < 0.15 * max(disp, 1e-3), (err, disp)
 
     def test_affine_matches(self):
-        from pyfocusr_tpu.ops import cpd as tpu_cpd
+        from pyfocusr_tpu.ops import cpd as jax_cpd
 
         rng = np.random.default_rng(5)
         X = rng.normal(size=(400, 6))
@@ -179,7 +179,7 @@ class TestTpuMatchesPycpdOracle:
         ref.register()
         ref_out = ref.transform_point_cloud(full)
 
-        dev = tpu_cpd.affine_registration(X=X, Y=Y, max_iterations=100,
+        dev = jax_cpd.affine_registration(X=X, Y=Y, max_iterations=100,
                                           tolerance=1e-8)
         dev.register()
         dev_out = np.asarray(dev.transform_point_cloud(full), np.float64)

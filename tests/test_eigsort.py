@@ -103,16 +103,15 @@ def test_jit_reverse_mode_matches_oracle():
     np.testing.assert_allclose(np.asarray(Q_jit), Q_ref, rtol=2e-3, atol=1e-7)
 
 
-def test_quad_form_matches_matvec_quotient():
+def test_quad_form_matches_matvec_quotient(mesh_5k_target):
     """sym_laplacian_quad_form == V^T A V on a small graph (f64 oracle),
     and both equal the matvec quotient to f32 accuracy."""
     import jax
 
-    from pyfocusr_tpu.mesh import load_mesh
     from pyfocusr_tpu.ops import graph_ops
     from pyfocusr_tpu.pipeline import mesh_to_graph_arrays
 
-    g = mesh_to_graph_arrays(load_mesh("/root/reference/data/target_mesh.vtk"))
+    g = mesh_to_graph_arrays(mesh_5k_target)
     w = graph_ops.edge_weights(g.points, g.neighbors, g.nbr_mask)
     ov_w = graph_ops.overflow_weights(g.points, g.overflow)
     d = graph_ops.degree_vector(w, g.overflow, ov_w)

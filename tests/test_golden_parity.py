@@ -11,7 +11,7 @@ configuration (/root/reference/examples/Example_registering_two_bone_meshes
 Gate calibration: the reference pipeline is itself stochastic (unseeded
 subsampling for CPD, reference ``graph.py:290``, ``focusr.py:300-306``); two
 seeded golden runs (seed 0 vs 1) agree on only 49% of final correspondence
-indices with a 1.0 mm mean pick distance.  The TPU pipeline measures 65%
+indices with a 1.0 mm mean pick distance.  The JAX pipeline measures 65%
 exact / 0.67 mm against the golden — i.e. *within the reference's own noise
 band* — and the gates below sit between the two.
 """
@@ -70,7 +70,7 @@ def pipeline_result(mesh_5k_target, mesh_5k_source):
 
 
 class TestGoldenParity5k:
-    """North-star gate (BASELINE.json): correspondence parity vs the CPU
+    """North-star gate: correspondence parity vs the CPU
     reference on the bundled 5k pair, notebook config, 'kd' correspondences.
 
     NON-SLOW since round 4 (VERDICT r3 task #3): a quality regression in
@@ -137,7 +137,7 @@ class TestGoldenParityHungarian:
 
     NON-SLOW since round 4 (VERDICT r3 task #3) — the notebook's true
     initial_correspondence_type; ~116 s on this single-core CPU host
-    (the 5000x5000 exact assignment dominates; TPU runs it in 0.2 s)."""
+    (the 5000x5000 exact assignment dominates)."""
 
     def test_hungarian_pipeline_matches_golden(
         self, mesh_5k_target, mesh_5k_source
@@ -249,9 +249,9 @@ class TestGoldenParityWeighted:
         # THE WEIGHTED CONFIG IS CHAOTIC IN EXACT-INDEX TERMS — measured
         # decomposition (round 3, against the pycpd-faithful golden):
         #   f64 oracle seed 0 vs seed 1 (self-noise):          30.6% / 1.50 mm
-        #   f64 oracle + TPU f32 eigvecs (one realization):    33.6% / 1.51 mm
+        #   f64 oracle + JAX f32 eigvecs (one realization):    33.6% / 1.51 mm
         #   f64 oracle + the pipeline's eigvec realization:    23.0% / 1.93 mm
-        #   full f32 TPU pipeline:                             ~12%  / ~2.4 mm
+        #   full f32 JAX pipeline:                             ~12%  / ~2.4 mm
         # Root cause, verified stepwise: all five eigsort cost matrices
         # agree with the f64 oracle to <= 1e-4 relative on identical
         # eigvecs, but the weighting w_u = exp(-(Q_u lam_u)^2 / 2 sigma^2)
@@ -537,7 +537,7 @@ class TestFeatureE2EGolden:
     pair — bench.py's features_15k config — gated at correspondence level
     against TWO oracle seeds (self-noise calibrated, like the base
     configs).  Establishes whether the ~0.63 unique fraction of this
-    config is reference-identical behavior or a TPU-path defect."""
+    config is reference-identical behavior or a JAX-path defect."""
 
     GOLD = [
         "tests/goldens/reference_golden_15k_features_s0.npz",

@@ -267,6 +267,27 @@ def test_spectral_bases_shapes_and_guard():
         spectral_bases(graphs, TINY, jax.random.PRNGKey(7), n_basis=10**6)
 
 
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_all_pairs_sharded_equals_one_device_bitwise(n_dev):
+    """Pairs run one after another on each device, so the sharded fan-out
+    (on 4 devices: 6 pairs padded to 8) equals the one-device run bit for
+    bit."""
+    from pyfocusr_tpu.synthetic import synthetic_bone
+
+    meshes = [synthetic_bone(300 + i, 3) for i in range(3)]
+    corr0, idx0, res0 = register_all_pairs(meshes, TINY, jax.random.PRNGKey(4))
+    mesh = Mesh(np.asarray(jax.devices()[:n_dev]).reshape(n_dev), ("pairs",))
+    corr1, idx1, res1 = register_all_pairs(
+        meshes, TINY, jax.random.PRNGKey(4), device_mesh=mesh
+    )
+    assert idx0 == idx1
+    np.testing.assert_array_equal(corr1, corr0)
+    for k in res0:
+        np.testing.assert_array_equal(
+            np.asarray(res1[k]), np.asarray(res0[k]), err_msg=k
+        )
+
+
 @pytest.mark.slow
 def test_all_pairs_sharded_matches_unsharded():
     meshes = _tiny_cohort(3)
@@ -318,8 +339,8 @@ def test_all_pairs_multi_axis_mesh_and_axis_validation():
 @pytest.mark.slow
 def test_all_pairs_pad_to_device_count():
     """6 ordered pairs over an 8-device 'pairs' axis: the batch pads with
-    dummy pairs so every device is active (MULTICHIP r3: the old
-    divisibility guard left 2 of 8 idle), and results match unsharded."""
+    dummy pairs so every device is active (a divisibility guard
+    would leave 2 of 8 idle), and results match unsharded."""
     meshes = _tiny_cohort(3)
     corr0, idx0, _ = register_all_pairs(meshes, TINY, jax.random.PRNGKey(4))
     devs = np.array(jax.devices()[:8]).reshape(8)

@@ -72,7 +72,7 @@ def test_capped_spectrum_matches_uncapped(mesh_5k_source):
 @pytest.mark.slow
 def test_uv_sphere_pole_registration():
     """UV-sphere poles touch the whole first ring (degree ~48 here, 320 at
-    the scale that faulted the TPU pre-cap) — the capped path keeps the ELL
+    the scale that faulted before the cap) — the capped path keeps the ELL
     narrow and registration completes."""
     import sys
 

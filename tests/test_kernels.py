@@ -38,7 +38,7 @@ class TestKNN:
         q = rng.random((100, 3)).astype(np.float32)
         r = rng.random((5000, 3)).astype(np.float32)
         _, i_ref = KDTree(r).query(q)
-        _, i = nn_query(jnp.asarray(r), jnp.asarray(q), tile=512)
+        _, i = nn_query(jnp.asarray(r), jnp.asarray(q))
         assert (np.asarray(i) == i_ref).mean() > 0.999
 
     def test_query_chunking_matches_unchunked(self, monkeypatch):
@@ -53,7 +53,7 @@ class TestKNN:
         d0, i0 = nn_query(jnp.asarray(r), jnp.asarray(q))
         d3, i3 = knn_query(jnp.asarray(r), jnp.asarray(q), k=3)
         monkeypatch.setattr(knn_mod, "_QUERY_CHUNK_ELEMS", 512 * 1024)
-        assert knn_mod._query_chunks(q.shape[0], 8192) > 1
+        assert knn_mod._query_chunks(q.shape[0], r.shape[0]) > 1
         d1, i1 = knn_mod.nn_query(jnp.asarray(r), jnp.asarray(q))
         d4, i4 = knn_mod.knn_query(jnp.asarray(r), jnp.asarray(q), k=3)
         assert d1.shape == (3003,) and i1.shape == (3003,)
@@ -213,14 +213,15 @@ def test_sinkhorn_jv_rejects_rectangular():
 
 
 def test_knn_routing_k_over_128():
-    """k > 128 overflows knn_pallas's 128 top-k lanes: the router must send
-    it to the XLA path, and the kernel itself must refuse."""
-    from pyfocusr_tpu.ops.knn import _use_pallas
-    from pyfocusr_tpu.ops.pallas_kernels import knn_pallas
-
-    assert not _use_pallas(3, 1000, 200, None)
-    with pytest.raises(ValueError, match="k<=128"):
-        knn_pallas(jnp.zeros((1000, 3)), jnp.zeros((10, 3)), 200)
+    """Large k (200) has no special route: knn_query returns cKDTree's
+    neighbors."""
+    rng = np.random.default_rng(9)
+    r = rng.random((1000, 3)).astype(np.float32)
+    q = rng.random((10, 3)).astype(np.float32)
+    d, i = knn_query(jnp.asarray(r), jnp.asarray(q), k=200)
+    d_ref, i_ref = KDTree(r).query(q, k=200)
+    np.testing.assert_array_equal(np.asarray(i), i_ref)
+    np.testing.assert_allclose(np.asarray(d), d_ref, atol=1e-5)
 
 
 def test_knn_query_fewer_refs_than_k_matches_kdtree():

@@ -45,11 +45,16 @@ def _assert_equal(a, b):
 
 
 @requires_native
-def test_bundled_meshes_identical():
+def test_bundled_meshes_identical(mesh_5k_target):
+    """The bundled target mesh and the 15k source (isolated vertices), or
+    without the reference data the synthetic bone at two sizes."""
+    from conftest import DATA, SYNTHETIC_FIXTURES
     from pyfocusr_tpu import load_mesh
+    from pyfocusr_tpu.synthetic import synthetic_bone
 
-    for name in ("target_mesh.vtk", "source_mesh_15k.vtk"):
-        m = load_mesh(f"/root/reference/data/{name}")
+    big = (synthetic_bone(1, subdivisions=5) if SYNTHETIC_FIXTURES
+           else load_mesh(f"{DATA}/source_mesh_15k.vtk"))
+    for m in (mesh_5k_target, big):
         tris = np.asarray(m.triangles)
         _assert_equal(
             _native_topology(tris, m.n_points),
@@ -92,10 +97,10 @@ def test_speed_sanity():
     is noisy, so just require it completes and returns the same counts)."""
     import time
 
-    from pyfocusr_tpu import load_mesh
     from pyfocusr_tpu.multires import subdivide
+    from pyfocusr_tpu.synthetic import synthetic_bone
 
-    m = subdivide(load_mesh("/root/reference/data/target_mesh_15k.vtk"))
+    m = subdivide(synthetic_bone(2, subdivisions=6))
     tris = np.asarray(m.triangles)
     t0 = time.perf_counter()
     topo = _native_topology(tris, m.n_points)

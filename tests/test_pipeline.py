@@ -6,14 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from conftest import DATA, _require_data
 from pyfocusr_tpu import load_mesh
 from pyfocusr_tpu.pipeline import (
     PipelineConfig,
     mesh_to_graph_arrays,
     register_pair,
 )
-
-DATA = "/root/reference/data"
 
 FAST = dict(
     icp_iterations=30,
@@ -26,10 +25,10 @@ FAST = dict(
 
 
 @pytest.fixture(scope="module")
-def pair_5k():
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    source = load_mesh(f"{DATA}/source_mesh.vtk")
-    return mesh_to_graph_arrays(target), mesh_to_graph_arrays(source)
+def pair_5k(mesh_5k_target, mesh_5k_source):
+    """The bundled 5k pair, or the seeded synthetic pair without it
+    (conftest)."""
+    return mesh_to_graph_arrays(mesh_5k_target), mesh_to_graph_arrays(mesh_5k_source)
 
 
 @pytest.mark.slow
@@ -38,8 +37,8 @@ def test_register_pair_end_to_end(pair_5k):
     cfg = PipelineConfig(**FAST)
     res = register_pair(tg, sg, cfg, jax.random.PRNGKey(0))
     corr = np.asarray(res["correspondences"])
-    assert corr.shape == (5000,)
-    assert len(np.unique(corr)) > 0.6 * 5000
+    assert corr.shape == (sg.n_points,)
+    assert len(np.unique(corr)) > 0.6 * sg.n_points
     # nearest points are actual target vertices
     np.testing.assert_allclose(
         np.asarray(res["nearest_points"]),
@@ -63,7 +62,7 @@ def test_register_pair_with_outlier_w(pair_5k):
     cfg = PipelineConfig(non_rigid_outlier_w=0.1, **FAST)
     res = register_pair(tg, sg, cfg, jax.random.PRNGKey(0))
     corr = np.asarray(res["correspondences"])
-    assert len(np.unique(corr)) > 0.5 * 5000
+    assert len(np.unique(corr)) > 0.5 * sg.n_points
     assert np.all(np.isfinite(np.asarray(res["weighted_points"])))
 
 
@@ -79,7 +78,7 @@ def test_register_pair_deterministic(pair_5k):
 
 
 @pytest.mark.slow
-def test_padding_is_inert(pair_5k):
+def test_padding_is_inert(pair_5k, mesh_5k_target, mesh_5k_source):
     """Padding with dead vertices must not degrade the registration.
 
     Exact index equality is NOT expected: the subsample draws (eigsort/CPD)
@@ -88,22 +87,21 @@ def test_padding_is_inert(pair_5k):
     rows never leak into results, (c) quality metrics match the unpadded run.
     """
     tg, sg = pair_5k
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    source = load_mesh(f"{DATA}/source_mesh.vtk")
-    tg_pad = mesh_to_graph_arrays(target, pad_n_points=5120)
-    sg_pad = mesh_to_graph_arrays(source, pad_n_points=5120)
+    n = sg.n_points
+    tg_pad = mesh_to_graph_arrays(mesh_5k_target, pad_n_points=5120)
+    sg_pad = mesh_to_graph_arrays(mesh_5k_source, pad_n_points=5120)
     cfg = PipelineConfig(**FAST)
     res = register_pair(tg, sg, cfg, jax.random.PRNGKey(3))
     res_pad = register_pair(tg_pad, sg_pad, cfg, jax.random.PRNGKey(3))
     c1 = np.asarray(res["correspondences"])
-    c2 = np.asarray(res_pad["correspondences"])[:5000]
+    c2 = np.asarray(res_pad["correspondences"])[:n]
     # No correspondence ever points at a padding row.
-    assert c2.max() < 5000
+    assert c2.max() < tg.n_points
     # Padding rows are zeroed in every output.
-    assert np.all(np.asarray(res_pad["weighted_points"])[5000:] == 0)
+    assert np.all(np.asarray(res_pad["weighted_points"])[n:] == 0)
     # Quality parity: unique-correspondence density and geometric agreement.
-    u1 = len(np.unique(c1)) / 5000
-    u2 = len(np.unique(c2)) / 5000
+    u1 = len(np.unique(c1)) / n
+    u2 = len(np.unique(c2)) / n
     # Both healthy; the unique fraction itself is noisy (0.6-0.87 observed
     # across equivalent configs), so gate each run rather than their delta.
     assert u1 > 0.5 and u2 > 0.5, (u1, u2)
@@ -113,29 +111,29 @@ def test_padding_is_inert(pair_5k):
     assert np.median(d) < 0.12 * extent, (np.median(d), extent)
 
 
-def test_padded_spectrum_exact(pair_5k):
+def test_padded_spectrum_exact(pair_5k, mesh_5k_target):
     """The padded eigensolve must match the unpadded one to f32 accuracy
     (Krylov iteration confined to the masked subspace)."""
     from pyfocusr_tpu.pipeline import _spectrum
 
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    tg = mesh_to_graph_arrays(target)
-    tg_pad = mesh_to_graph_arrays(target, pad_n_points=5120)
+    tg = pair_5k[0]
+    n = tg.n_points
+    tg_pad = mesh_to_graph_arrays(mesh_5k_target, pad_n_points=5120)
     cfg = PipelineConfig()
     lams, vecs, _ = _spectrum(tg, 6, jax.random.PRNGKey(0), cfg)
     lams_p, vecs_p, _ = _spectrum(tg_pad, 6, jax.random.PRNGKey(0), cfg)
     np.testing.assert_allclose(np.asarray(lams), np.asarray(lams_p), rtol=1e-3)
     for c in range(6):
         a = np.asarray(vecs[:, c])
-        b = np.asarray(vecs_p[:5000, c])
+        b = np.asarray(vecs_p[:n, c])
         a = a - a.mean()
         b = b - b.mean()
         cos = abs(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b))
         assert cos > 0.9999, f"col {c}: {cos}"
-    assert np.all(np.asarray(vecs_p)[5000:] == 0)
+    assert np.all(np.asarray(vecs_p)[n:] == 0)
 
 
-def test_eigenvalues_match_graph_class(pair_5k):
+def test_eigenvalues_match_graph_class(pair_5k, mesh_5k_target):
     """Pipeline spectrum equals the class-path spectrum (same operators)."""
     from pyfocusr_tpu.pipeline import _spectrum
     from pyfocusr_tpu.spectral.graph import Graph
@@ -143,8 +141,7 @@ def test_eigenvalues_match_graph_class(pair_5k):
     tg, _ = pair_5k
     cfg = PipelineConfig()
     lams, vecs, _ = _spectrum(tg, 6, jax.random.PRNGKey(0), cfg)
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    graph = Graph(target, n_spectral_features=6, seed=0)
+    graph = Graph(mesh_5k_target, n_spectral_features=6, seed=0)
     graph.get_graph_spectrum()
     np.testing.assert_allclose(
         np.asarray(lams), np.asarray(graph.eig_vals), rtol=5e-3
@@ -184,7 +181,7 @@ def test_mutual_consistency_mask(pair_5k):
     cfg = PipelineConfig(compute_mutual_consistency=True, **FAST)
     res = register_pair(tg, sg, cfg, jax.random.PRNGKey(0))
     m = np.asarray(res["mutual_consistency"])
-    assert m.shape == (5000,)
+    assert m.shape == (sg.n_points,)
     assert set(np.unique(m)).issubset({0.0, 1.0})
     # For a well-registered similar pair, a large fraction is mutual.
     assert m.mean() > 0.3, m.mean()
@@ -197,6 +194,7 @@ def test_register_pair_15k_real_data():
     the ARPACK goldens (computed once with scipy shift-invert)."""
     import jax
 
+    _require_data()
     tg = mesh_to_graph_arrays(load_mesh(f"{DATA}/target_mesh_15k.vtk"))
     sg = mesh_to_graph_arrays(load_mesh(f"{DATA}/source_mesh_15k.vtk"))
     cfg = PipelineConfig(
@@ -317,27 +315,25 @@ def test_landmark_pairs_guide_registration():
     assert u1 > 0.8 * u0, (u0, u1)
 
 
-def test_hungarian_rejects_padded_graphs(pair_5k):
+def test_hungarian_rejects_padded_graphs(mesh_5k_target, mesh_5k_source):
     """'hungarian' is one-to-one over ALL rows, so padded graphs (whose
     padding rows sit at the origin) must be rejected up front rather than
     silently stealing target vertices from real source vertices."""
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    source = load_mesh(f"{DATA}/source_mesh.vtk")
-    tg_pad = mesh_to_graph_arrays(target, pad_n_points=5120)
-    sg_pad = mesh_to_graph_arrays(source, pad_n_points=5120)
+    tg_pad = mesh_to_graph_arrays(mesh_5k_target, pad_n_points=5120)
+    sg_pad = mesh_to_graph_arrays(mesh_5k_source, pad_n_points=5120)
     cfg = PipelineConfig(**{**FAST, "initial_correspondence_type": "hungarian"})
     with pytest.raises(ValueError, match="unpadded"):
         register_pair(tg_pad, sg_pad, cfg, jax.random.PRNGKey(0))
 
 
-def test_oversized_subsample_rejected_on_padded_graphs():
+def test_oversized_subsample_rejected_on_padded_graphs(
+    mesh_5k_target, mesh_5k_source
+):
     """Subsample knobs above the REAL vertex count would draw padding rows
     (_rand_idxs static-size caveat); register_pair now rejects them for
     hand-padded graphs, matching the cohort path's check_cohort_config."""
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    source = load_mesh(f"{DATA}/source_mesh.vtk")
-    tg_pad = mesh_to_graph_arrays(target, pad_n_points=5120)
-    sg_pad = mesh_to_graph_arrays(source, pad_n_points=5120)
+    tg_pad = mesh_to_graph_arrays(mesh_5k_target, pad_n_points=5120)
+    sg_pad = mesh_to_graph_arrays(mesh_5k_source, pad_n_points=5120)
     cfg = PipelineConfig(**{**FAST, "n_coords_spectral_ordering": 5100})
     with pytest.raises(ValueError, match="n_coords_spectral_ordering"):
         register_pair(tg_pad, sg_pad, cfg, jax.random.PRNGKey(0))
@@ -381,15 +377,14 @@ def test_pipeline_feature_mismatch_raises():
         reg._pipeline_features_flag()
 
 
-def test_landmark_pairs_from_positions():
+def test_landmark_pairs_from_positions(mesh_5k_target, mesh_5k_source):
     """Positions snap to nearest vertices; distances are reported so
     off-surface landmarks are detectable."""
     from pyfocusr_tpu.pipeline import landmark_pairs_from_positions
 
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    source = load_mesh(f"{DATA}/source_mesh.vtk")
-    src_idx = np.array([10, 500, 4000])
-    tgt_idx = np.array([20, 600, 4500])
+    target, source = mesh_5k_target, mesh_5k_source
+    src_idx = np.array([10, 500, 2000])
+    tgt_idx = np.array([20, 600, 2500])
     sp = np.asarray(source.points)[src_idx] + 0.01  # slightly off-surface
     tp = np.asarray(target.points)[tgt_idx] + 0.01
     pairs, dists = landmark_pairs_from_positions(source, target, sp, tp)

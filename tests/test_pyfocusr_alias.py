@@ -1,6 +1,6 @@
 """The ``pyfocusr`` drop-in alias package: every import style the reference
 supported (``/root/reference/pyfocusr/__init__.py:1-5`` star-imports +
-submodules) must resolve to the TPU-native implementations unchanged."""
+submodules) must resolve to the pyfocusr_tpu implementations unchanged."""
 
 
 def test_flat_imports_match_reference_surface():

@@ -3,7 +3,7 @@
 
 These oracles are written as the reference writes them — literal per-element
 loops over the published equations (with file:line citations) — and the
-vectorized TPU implementations must reproduce them.
+vectorized JAX implementations must reproduce them.
 """
 
 import jax.numpy as jnp

@@ -5,15 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyfocusr_tpu import load_mesh
 from pyfocusr_tpu.pipeline import PipelineConfig, mesh_to_graph_arrays, register_pair
 from pyfocusr_tpu.transfer import (
     cohort_point_data_matrix,
     mesh_with_transferred_data,
     transfer_point_data,
 )
-
-DATA = "/root/reference/data"
 
 FAST = PipelineConfig(
     icp_iterations=30,
@@ -26,9 +23,8 @@ FAST = PipelineConfig(
 
 
 @pytest.fixture(scope="module")
-def registered_5k():
-    target = load_mesh(f"{DATA}/target_mesh.vtk")
-    source = load_mesh(f"{DATA}/source_mesh.vtk")
+def registered_5k(mesh_5k_target, mesh_5k_source):
+    target, source = mesh_5k_target, mesh_5k_source
     res = register_pair(
         mesh_to_graph_arrays(target),
         mesh_to_graph_arrays(source),

@@ -235,14 +235,13 @@ def test_stage_timer_records_on_exception():
 class TestAOTExecutableFormat:
     """Executable-level AOT (round 4): the compiled XLA executable itself
     round-trips through serialization — zero-compile serving (the
-    StableHLO format re-compiles per process; measured 45 s vs ~2 s at
-    15k on v5e).
+    StableHLO format re-compiles per process).
 
     The serialize/deserialize round-trip runs in a SUBPROCESS: this
     jaxlib's XLA:CPU ``executable.serialize()`` / cache-deserialize pair
     segfaults late in long-lived processes (the same upstream bug the
     Makefile shards around), and this suite position is exactly that
-    regime.  Production serving is TPU, where the bug does not manifest.
+    regime.  Production serving is on a GPU, which does not share it.
     Sidecar-REJECTION checks raise before any executable bytes are
     touched and stay in-process."""
 
@@ -283,7 +282,7 @@ import jax; jax.config.update('jax_platforms', 'cpu')
 # process that also loads cache-hit executables fails at execute time
 # ("Buffer Definition Event: Function ... not found" — observed on the
 # second run, once the sibling register_pair program became a cache
-# hit).  TPU serving does not exhibit this; CPU tests sidestep it.
+# hit).  CPU tests sidestep it.
 jax.config.update('jax_enable_compilation_cache', False)
 import sys; sys.path.insert(0, {repo!r})
 import numpy as np
@@ -326,7 +325,7 @@ print('ROUNDTRIP_OK')
                 path, cfg=dataclasses.replace(cfg, non_rigid_beta=9.0)
             )
         meta = _json.loads((tmp_path / "reg.jaxexec.meta.json").read_text())
-        meta["device_kind"] = "TPU v9"
+        meta["device_kind"] = "Imaginary Accelerator v9"
         (tmp_path / "reg.jaxexec.meta.json").write_text(_json.dumps(meta))
         with pytest.raises(ValueError, match="device kind"):
             load_registration_exec(path)
@@ -358,3 +357,67 @@ print('ROUNDTRIP_OK')
         assert not isinstance(exc.value, ValueError) or "header" not in str(
             exc.value
         )
+
+
+@pytest.mark.parametrize("env_set", [True, False], ids=["env_set", "env_unset"])
+def test_compile_cache_location(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR set: code sets no directory (JAX reads the
+    variable itself).  Unset: the fixed <checkout>/.jax_cache."""
+    import os
+
+    import jax
+
+    from pyfocusr_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            jax.config.update("jax_compilation_cache_dir", "untouched")
+            assert compile_cache.enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == "untouched"
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            want = os.path.join(
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                ".jax_cache",
+            )
+            assert compile_cache.default_cache_dir() == want
+            assert compile_cache.enable_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_lowered_pipeline_matmuls_are_highest():
+    """Static precision audit of the lowered register_pair program (the
+    driver entry point's small pair): every dot_general / convolution runs
+    at HIGHEST — on an H100 an f32 matmul without a precision runs in TF32
+    — and the KNN stages carry no matmul at all (direct differences)."""
+    import sys
+
+    import jax
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
+    from __graft_entry__ import entry
+    from pyfocusr_tpu.utils.precision import dot_precision_census
+
+    fn, args = entry()
+    census = dot_precision_census(jax.jit(fn).lower(*args).as_text())
+    assert census.get("HIGHEST", 0) > 50, census
+    assert set(census) == {"HIGHEST"}, census
+
+
+def test_dot_precision_census_parses_stablehlo():
+    from pyfocusr_tpu.utils.precision import dot_precision_census
+
+    text = "\n".join([
+        "%1 = stablehlo.dot_general %a, %b, contracting_dims = [1] x [0], "
+        "precision = [HIGHEST, HIGHEST] : (tensor<2x3xf32>, tensor<3x3xf32>)",
+        "%2 = stablehlo.dot_general %a, %b, contracting_dims = [1] x [0], "
+        "precision = [HIGH, HIGHEST] : (tensor<2x3xf32>, tensor<3x3xf32>)",
+        "%3 = stablehlo.dot_general %a, %b, contracting_dims = [1] x [0] "
+        ": (tensor<2x3xf32>, tensor<3x3xf32>)",
+        "%4 = stablehlo.add %a, %b : tensor<2x3xf32>",
+    ])
+    assert dot_precision_census(text) == {"HIGHEST": 1, "HIGH": 1, "DEFAULT": 1}

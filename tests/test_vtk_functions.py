@@ -7,17 +7,20 @@ import pytest
 
 from pyfocusr_tpu import vtk_functions as vf
 
-DATA = "/root/reference/data"
-
-
 @pytest.fixture(scope="module")
-def mesh():
-    return vf.read_vtk_mesh(f"{DATA}/source_mesh.vtk")
+def mesh(mesh_5k_source, tmp_path_factory):
+    """The fixture source mesh, written to and read back from a .vtk file."""
+    path = str(tmp_path_factory.mktemp("vtk") / "source_mesh.vtk")
+    vf.write_vtk_mesh(path, mesh_5k_source)
+    return vf.read_vtk_mesh(path)
 
 
-def test_read_vtk_mesh(mesh):
-    assert mesh.n_points == 5000
-    assert mesh.n_triangles == 9996
+def test_read_vtk_mesh(mesh, mesh_5k_source):
+    assert mesh.n_points == mesh_5k_source.n_points
+    assert mesh.n_triangles == mesh_5k_source.n_triangles
+    np.testing.assert_allclose(
+        np.asarray(mesh.points), np.asarray(mesh_5k_source.points), rtol=1e-6
+    )
 
 
 def test_write_vtk_mesh_roundtrip(mesh, tmp_path):
@@ -57,7 +60,7 @@ def test_icp_transform_invalid_mode(mesh):
 
 def test_curvature_getters(mesh):
     kmin, kmax = vf.get_min_max_curvature_values(mesh)
-    assert kmin.shape == (5000,)
+    assert kmin.shape == (mesh.n_points,)
     assert np.all(kmin <= kmax + 1e-6)
     (only_max,) = vf.get_max_curvature(mesh)
     (only_min,) = vf.get_min_curvature(mesh)

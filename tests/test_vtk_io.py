@@ -6,7 +6,7 @@ import pytest
 
 from pyfocusr_tpu.io.vtk_io import read_vtk_polydata, write_vtk_polydata
 
-DATA = "/root/reference/data"
+from conftest import DATA, _require_data
 
 
 @pytest.mark.parametrize(
@@ -19,6 +19,7 @@ DATA = "/root/reference/data"
     ],
 )
 def test_read_bundled(name, n_pts, n_tris):
+    _require_data()
     pts, tris, pd = read_vtk_polydata(f"{DATA}/{name}")
     assert pts.shape == (n_pts, 3)
     assert tris.shape == (n_tris, 3)
@@ -27,8 +28,15 @@ def test_read_bundled(name, n_pts, n_tris):
     assert pd["thickness_change_(mm)"].shape == (n_pts,)
 
 
-def test_roundtrip(tmp_path):
-    pts, tris, pd = read_vtk_polydata(f"{DATA}/source_mesh.vtk")
+def test_roundtrip(tmp_path, mesh_5k_source):
+    src = tmp_path / "source_mesh.vtk"
+    write_vtk_polydata(
+        src, np.asarray(mesh_5k_source.points, np.float64),
+        np.asarray(mesh_5k_source.triangles),
+        {k: np.asarray(v, np.float64)
+         for k, v in mesh_5k_source.point_data.items()},
+    )
+    pts, tris, pd = read_vtk_polydata(str(src))
     out = tmp_path / "rt.vtk"
     write_vtk_polydata(out, pts, tris, pd)
     pts2, tris2, pd2 = read_vtk_polydata(str(out))
@@ -82,21 +90,30 @@ def test_binary_vtk_read(tmp_path):
     np.testing.assert_allclose(pd2["thickness"], scal)
 
 
-def test_native_reader_matches_python():
+def test_native_reader_matches_python(tmp_path, mesh_5k_target, mesh_5k_source):
     """The native C++ fast-path reader (when built) returns byte-identical
-    results to the pure-python tokenizer on all bundled meshes."""
+    results to the pure-python tokenizer on all bundled meshes (without
+    the reference data: on the synthetic pair written as ASCII .vtk)."""
+    from conftest import SYNTHETIC_FIXTURES
     from pyfocusr_tpu.io.vtk_io import _read_ascii
     from pyfocusr_tpu.native import get_lib
 
     if get_lib() is None:
         pytest.skip("native library not built (run `make native`)")
-    for name in [
-        "source_mesh.vtk",
-        "target_mesh.vtk",
-        "source_mesh_15k.vtk",
-        "target_mesh_15k.vtk",
-    ]:
-        path = f"{DATA}/{name}"
+    if SYNTHETIC_FIXTURES:
+        paths = []
+        for name, m in (("target", mesh_5k_target), ("source", mesh_5k_source)):
+            path = str(tmp_path / f"{name}_mesh.vtk")
+            write_vtk_polydata(
+                path, np.asarray(m.points, np.float64), np.asarray(m.triangles),
+                {k: np.asarray(v, np.float64) for k, v in m.point_data.items()},
+            )
+            paths.append(path)
+    else:
+        paths = [f"{DATA}/{name}" for name in (
+            "source_mesh.vtk", "target_mesh.vtk",
+            "source_mesh_15k.vtk", "target_mesh_15k.vtk")]
+    for path in paths:
         p1, t1, d1 = read_vtk_polydata(path)
         raw = open(path, "rb").read()
         p2, t2, d2 = _read_ascii(raw.decode("ascii", errors="replace"))

@@ -6,8 +6,8 @@ refine at >= 960k vertices (the bundled 15k pair subdivided x3), on N
 virtual CPU devices (`--xla_force_host_platform_device_count`) — the
 same mechanism the test suite and the driver's multichip dryrun use.
 Run standalone or through bench.py's `sharded_refine_960k` block (which
-launches this in a subprocess: the bench process owns the TPU backend
-and cannot re-init as multi-device CPU).
+launches this in a subprocess: the bench process owns the accelerator
+backend and cannot re-init as multi-device CPU).
 
 Prints ONE JSON line with both times, the speedup, and the index
 agreement.  On a single-core host the virtual devices time-slice one
@@ -37,10 +37,9 @@ import jax
 
 if not MODEL_MODE:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache"),
-)
+from pyfocusr_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,7 +73,8 @@ def model() -> int:
                     all_gather per smoothing step — bigmesh.py)
 
     Assumptions (overridable by env): BW_ici = 1.6e11 B/s effective
-    all-gather bandwidth per chip (v5e ICI), LAT = 5e-6 s per
+    all-gather bandwidth per device (an assumed interconnect rate, not a
+    measured one), LAT = 5e-6 s per
     collective, C_fix = 1 ms per-invocation overhead.  CAVEATS: ignores
     per-step dispatch floors inside shard_map, assumes the KNN shards
     linearly (it all_gathers the reference side once), and says nothing

@@ -1,4 +1,4 @@
-"""Measure end-to-end parity of the TPU pipeline against the reference
+"""Measure end-to-end parity of the JAX pipeline against the reference
 golden (tools/make_reference_golden.py).  Prints the numbers the parity
 test (tests/test_golden_parity.py) gates on and that PARITY.md records.
 
@@ -10,10 +10,13 @@ from __future__ import annotations
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
+
+from pyfocusr_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import numpy as np
 
 DATA = "/root/reference/data"

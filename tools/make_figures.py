@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Render the documentation figures (docs/images/*.png) from the bundled
-meshes — the TPU rebuild's analogue of the reference's ``images/`` renders
+meshes — this rebuild's analogue of the reference's ``images/`` renders
 (source/target, Fiedler + higher eigenvectors, transformed source, average
 mesh).
 

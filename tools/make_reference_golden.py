@@ -156,7 +156,7 @@ def run_feature_e2e(seeds=(0, 1)):
     weighted into the graph edges — the exact config bench.py's
     features_15k measures — run through the oracle at TWO seeds so the
     gate carries its own self-noise calibration.  Answers whether the
-    TPU path's unique fraction on this config is reference-equivalent."""
+    JAX path's unique fraction on this config is reference-equivalent."""
     tgt_p, tgt_t, tgt_pd = read_vtk_polydata(f"{DATA}/target_mesh_15k.vtk")
     src_p, src_t, src_pd = read_vtk_polydata(f"{DATA}/source_mesh_15k.vtk")
     cfg = dict(

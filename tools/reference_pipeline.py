@@ -4,10 +4,10 @@ This is the GOLDEN ORACLE for end-to-end parity testing (SURVEY §4, VERDICT
 round-1 task #1): a faithful, *seeded* re-statement of the reference's math
 using the same scipy primitives the reference calls (ARPACK shift-invert
 ``eigs``, ``KDTree``, ``linear_sum_assignment``, ``wasserstein_distance``,
-sparse SpMV), so the TPU framework can be gated against what the reference
+sparse SpMV), so the JAX framework can be gated against what the reference
 actually computes — not just against per-formula unit oracles.
 
-It is NOT part of the production framework (which is JAX/Pallas —
+It is NOT part of the production framework (which is JAX —
 ``pyfocusr_tpu``); it exists only to *generate* goldens
 (tools/make_reference_golden.py -> tests/goldens/*.npz) and is vectorized
 numpy rather than the reference's per-element VTK loops.

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Run all five BASELINE.json benchmark configurations and report results.
+"""Run the five benchmark configurations below and report results.
 
-    python tools/run_configs.py            # on TPU
+    python tools/run_configs.py            # on the GPU
     python tools/run_cpu.py tools/run_configs.py   # CPU, 8 virtual devices
 
 1. Spectral coords: weighted graph Laplacian + first-6 eigenvectors of
